@@ -27,6 +27,12 @@ import pytest  # noqa: E402
 from mtp_tpu.io.basis_gen import make_mtp  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; skips elsewhere"
+    )
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     """Drop jit/compile caches after each test module.
