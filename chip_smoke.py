@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device: name, ``nvidia-smi`` name and power limit, TF32 pinned off.
-2. Build: nvcc builds the four CUDA kernels from ``mtp_tpu_torch/csrc``.
+2. Build: nvcc builds the seven CUDA kernels from ``mtp_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on an 864-atom two-species
    level-16 fcc box (positions jittered from a seed), in fp32 on the card;
    then the fp32 kernel path against the port's float64 plain path on the
@@ -19,10 +19,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version called during the run.
 5. Each kernel at the main path's shapes against its plain version, with
    its time and the plain version's time (CUDA events).
+6. Active-learning kernels on the phase-3 box, with an MVS state built by
+   ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
+   K5 against its plain twin on every output, K6 and K7 (through the autograd
+   backward) against theirs, and the fp32 window grade step (K1, K5, K3)
+   against the float64 plain path (b, grades, forces, energy; tolerances
+   and their reasons at the top of this file).
+7. The AL path at full width (``bench_suite.py`` configuration 4b): level
+   16, one species, an MVS from three perturbed 4,000-atom boxes, the
+   32,000-atom box equilibrated 60 steps, then ``run_with_extrapolation`` for
+   120 NVE steps graded every 30 (5 grade steps, the initial one included)
+   and the same 120 steps of plain ``run_async``, timed. K5 launched 5 times,
+   K1-K4 launched, no plain twin called. Then the modular energy path
+   (``site_energies_fused``: K6 forward, K7 backward) drives K6 and K7 once
+   each, and K5, K6 and K7 at these shapes are held against their plain
+   versions and timed.
 
-Prints one JSON line of kernels before the last line, and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
-CUDA device is present or the package is missing.
+Prints one JSON line of all seven kernels before the last line, and as the
+last line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
+when no CUDA device is present or the package is missing.
 """
 
 from __future__ import annotations
@@ -49,6 +64,23 @@ TOL = {
     "site_energies_mega": 1e-5,  # eV
 }
 GATE_DE, GATE_DF, GATE_DW = 1e-6, 5e-4, 5e-2  # tools/tpu_smoke.py:76
+# K5 vs its plain twin, fp32 on the card: site energies and pair forces as K4
+# and K2; basis members and radial rows relative to their largest entry (sums
+# of up to ~60 fp32 terms of scale ~10-60; 3-6e-7 measured on an H100); K6
+# likewise; K7 (the gradient of the modular energy path) against K2's plain
+# twin as K2.
+TOL_K5 = {"site_e": 1e-5, "pair_tT": 5e-5, "basis_members": 1e-5, "rad": 1e-5}
+K5_RELATIVE = ("basis_members", "rad")
+TOL_K6_REL, TOL_K7 = 1e-5, 5e-5
+# fp32 window grade step vs the float64 plain path. b: max|db|/max|b| (1.6e-6
+# measured on an H100). Grades: max|dg| over the largest grade, and the max
+# grade's relative error. The MVS built here has cond(A) ~ 8e7 (build_mvs
+# prices the structural null directions of b at 1/reg), so fp32 rounding of
+# b is amplified: rounding the float64 b to fp32 alone moves grades by
+# 5.5e-4 of the max grade, and the kernel path by 1.2e-3 (the max grade by
+# 4e-5), measured on an H100. Each run prints its own rounding floor beside
+# the error.
+GATE_B_REL, GATE_GRADE_REL, GATE_MAX_GRADE_REL = 1e-5, 1e-2, 1e-3
 
 
 def check(cond, msg):
@@ -145,6 +177,274 @@ def torch_sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+def rel_err(a, b):
+    return max_err(a, b) / float(b.double().abs().max())
+
+
+def compare_al_kernels(model, pos, cell, types, swl, timing):
+    """K5, K6 and K7 vs their plain versions on the same inputs. Returns
+    {name: (max_abs_err, ms, plain_ms)}; K5's error is its largest over the
+    four outputs, each of which is checked against its tolerance."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import _place_blocks
+    from mtp_tpu_torch.ops import fused_basic as fb
+    from mtp_tpu_torch.ops import fused_candidates as fc
+    from mtp_tpu_torch.ops import fused_moments as fm
+
+    _, k, args = kernel_inputs(model, pos, cell, types, swl)
+    got = fc.candidates_mega(*args, k["esp"])
+    want = fc.candidates_mega_plain(*args, k["esp"])
+    torch_sync()
+    errs = {}
+    for key, tol in TOL_K5.items():
+        check(bool(got[key].isfinite().all()), f"candidates_mega {key}: non-finite")
+        e = rel_err(got[key], want[key]) if key in K5_RELATIVE else max_err(got[key], want[key])
+        errs[key] = max_err(got[key], want[key])
+        kind = "relative" if key in K5_RELATIVE else "abs"
+        print(f"  candidates_mega {key}: {kind} err {e:.3e} (tol {tol:.0e})")
+        check(e <= tol, f"candidates_mega {key} disagrees with its plain version")
+    s = model.schedule.species_count
+    b_k = _place_blocks(got["rad"], k["it_row"], got["basis_members"], s)
+    b_p = _place_blocks(want["rad"], k["it_row"], want["basis_members"], s)
+    eb = rel_err(b_k, b_p)
+    print(f"  candidates_mega b: max|db|/max|b| = {eb:.3e} (gate {GATE_B_REL:.0e})")
+    check(eb <= GATE_B_REL, "candidate vectors from K5 disagree with the plain twin's")
+    mb = fb.basic_moments_fused(*args[:6])
+    mb_plain = fb.basic_moments_fused_plain(*args[:6])
+    e6 = rel_err(mb, mb_plain)
+    print(f"  basic_moments_fused: relative err {e6:.3e} (tol {TOL_K6_REL:.0e})")
+    check(e6 <= TOL_K6_REL, "basic_moments_fused disagrees with its plain version")
+    # K7 through the autograd backward of the modular energy path: the
+    # gradient of the site energies is the pair force of K2's plain twin
+    d = args[1].clone().requires_grad_(True)
+    e = fb.site_energies_fused(model.tables, model.coeffs, d, *args[2:5])
+    (g,) = torch.autograd.grad(e.sum(), d)
+    want_g = fm.pair_forces_mega_plain(*args)
+    e7 = max_err(g, want_g)
+    print(f"  basic_moments_vjp (autograd backward): max|kernel - plain| = {e7:.3e} "
+          f"(tol {TOL_K7:.0e})")
+    check(e7 <= TOL_K7, "basic_moments_vjp disagrees with its plain version")
+    out = {
+        "candidates_mega": [max(errs.values()), None, None],
+        "basic_moments_fused": [max_err(mb, mb_plain), None, None],
+        "basic_moments_vjp": [e7, None, None],
+    }
+    if timing:
+        # K7 alone, on the gamma = dE/d(basic moments) of these inputs
+        mb0 = mb.detach().requires_grad_(True)
+        basis = fb.contract_dag_t(model.schedule, mb0)[model.tables.mapping]
+        (gamma,) = torch.autograd.grad(
+            torch.sum(basis * model.coeffs.moment_coeffs[:, None]), mb0
+        )
+        gamma = gamma.contiguous()
+        calls = {
+            "candidates_mega": (lambda: fc.candidates_mega(*args, k["esp"]),
+                                lambda: fc.candidates_mega_plain(*args, k["esp"])),
+            "basic_moments_fused": (lambda: fb.basic_moments_fused(*args[:6]),
+                                    lambda: fb.basic_moments_fused_plain(*args[:6])),
+            "basic_moments_vjp": (lambda: fb.basic_moments_vjp(*args[:6], gamma),
+                                  lambda: fb.basic_moments_vjp_plain(*args[:6], gamma)),
+        }
+        for name, (kern, plain) in calls.items():
+            out[name][1] = time_ms(kern, 20)
+            out[name][2] = time_ms(plain, 3)
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def mvs_from(model64, boxes, cell, types, cutoff):
+    """An MVS state (neighborhood mode) from the float64 plain candidate
+    vectors of the given position arrays (lists at `cutoff`, J = 64)."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import candidate_vectors
+    from mtp_tpu_torch.al.maxvol import build_mvs
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+
+    dev = model64.device
+    c = torch.as_tensor(cell, dtype=torch.float64, device=dev)
+    t = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    rows = []
+    for pos in boxes:
+        p = torch.as_tensor(pos, dtype=torch.float64, device=dev)
+        nl = build_neighbor_list(p, c, cutoff, max_neighbors=64, grid=grid_shape(cell, cutoff))
+        check(not bool(nl.overflow), "candidate-pool list overflow")
+        b, _ = candidate_vectors(model64, p, t, nl.idx, c)
+        rows.append(b.cpu().numpy())
+    return build_mvs(np.concatenate(rows), mode="neighborhood")
+
+
+def al_kernel_phase(m2, p32, ty, c32, swl):
+    """Phase 6 on the phase-3 box (`m2`, positions, types, cell, list)."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import (
+        candidates_and_forces,
+        candidates_and_forces_window,
+        grade_eval_window,
+        nbh_grades,
+    )
+    from mtp_tpu_torch.models.mtp import MTPModel, window_constants
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+
+    dev = p32.device
+    n = p32.shape[0]
+    cell = c32.double().cpu().numpy()
+    base = p32.double().cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    boxes = [base + rng.normal(0.0, s, base.shape) for s in (0.05, 0.1)]
+    m2.mvs = mvs_from(MTPModel.from_data(m2, device=dev, dtype=torch.float64), boxes, cell,
+                      ty.cpu().numpy(), m2.max_dist)
+    al32 = MTPModel.from_data(m2, device=dev, dtype=torch.float32)
+    al64 = MTPModel.from_data(m2, device=dev, dtype=torch.float64)
+    print(f"[6 AL kernels] {n} atoms, level 16, 2 species, J=64, fp32, MVS P="
+          f"{al32.inverse_active_set.shape[0]}: kernel vs plain")
+    compare_al_kernels(al32, p32, c32, ty, swl, timing=False)
+
+    win = candidates_and_forces_window(al32, p32, c32, swl, **window_constants(al32, ty, swl))
+    gw = grade_eval_window(al32, p32, ty, c32, swl, al32.inverse_active_set, config_mode=False)
+    p64, c64 = p32.double(), c32.double()
+    cut = al64.cutoff + 0.6
+    nl64 = build_neighbor_list(p64, c64, cut, max_neighbors=64, grid=grid_shape(cell, cut))
+    check(not bool(nl64.overflow), "f64 list overflow")
+    ref = candidates_and_forces(al64, p64, ty, nl64.idx, c64, nl64.mirror)
+    g64 = nbh_grades(ref["b"], al64.inverse_active_set)
+    gmax = float(g64.max())
+    floor = rel_err(nbh_grades(ref["b"].float().double(), al64.inverse_active_set), g64)
+    db = rel_err(win["b"][swl.inv_order], ref["b"])
+    dg = rel_err(gw["grades"], g64)
+    dmax = abs(float(gw["max_grade"]) - gmax) / gmax
+    df = max_err(gw["forces"], ref["forces"])
+    de = abs(float(gw["energy"]) - float(ref["energy"])) / n
+    print(f"[6 AL kernels] fp32 window grade step vs f64 plain path: max|db|/max|b|="
+          f"{db:.3e} (gate {GATE_B_REL:.0e}) max|dg|/max g={dg:.3e} (gate "
+          f"{GATE_GRADE_REL:.0e}; f64 b rounded to fp32 alone: {floor:.3e}) max grade "
+          f"{gmax:.4f} (rel err {dmax:.3e}, gate {GATE_MAX_GRADE_REL:.0e}) max|dF|={df:.3e} "
+          f"(gate {GATE_DF:.0e}) dE/atom={de:.3e} (gate {GATE_DE:.0e})")
+    check(bool(gw["grades"].isfinite().all()), "non-finite fp32 grades")
+    check(db <= GATE_B_REL, "fp32 candidate vectors vs f64")
+    check(dg <= GATE_GRADE_REL and dmax <= GATE_MAX_GRADE_REL, "fp32 grades vs f64")
+    check(df < GATE_DF and de < GATE_DE, "fp32 grade-step forces or energy vs f64")
+
+
+AL_BOX = (20, 20, 20)  # bench_suite.py configuration 4b: 32,000 atoms
+POOL_BOX = (10, 10, 10)  # its MVS pool: three 4,000-atom boxes
+
+
+def al_path_phase(dev, card):
+    """Phase 7: the AL path at full width. Returns the kernel rows of K5-K7."""
+    import torch
+
+    from mtp_tpu_torch.al.driver import ExtrapolationMonitor, run_with_extrapolation
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.kernels import all_kernels, reset_counts
+    from mtp_tpu_torch.md.simulation import Simulation, make_lattice
+    from mtp_tpu_torch.md.state import init_state, thermalize
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.ops import fused_moments as fm
+    from mtp_tpu_torch.ops.fused_basic import site_energies_fused
+    from mtp_tpu_torch.ops.window_giveback import window_giveback
+
+    m = make_mtp(16, species_count=1, seed=SEED)
+    pos4, types4, cell4 = make_lattice("fcc", 4.0, POOL_BOX)
+    rng = np.random.default_rng(1)
+    boxes = [pos4 + rng.normal(0.0, s, pos4.shape) for s in (0.02, 0.06, 0.1)]
+    t0 = time.perf_counter()
+    m.mvs = mvs_from(MTPModel.from_data(m, device=dev, dtype=torch.float64), boxes, cell4,
+                     types4, 5.0)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    print(f"[7 AL path] MVS from 3 x {len(pos4)} f64 candidate vectors: P="
+          f"{model.inverse_active_set.shape[0]}, {time.perf_counter() - t0:.2f} s")
+
+    pos, types, cell = make_lattice("fcc", 4.0, AL_BOX)
+    n = len(pos)
+    state = init_state(pos, types, np.full(n, 58.693), cell, dtype=torch.float32, device=dev)
+    state = thermalize(torch.Generator(device=dev).manual_seed(5), state, 300.0)
+    eq = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
+                    compute_virial=False)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
+                     compute_virial=False)
+    state, _, fl = eq.run_async(state, 60, dt=0.001)
+    check(not bool(fl), "AL equilibration flags set")
+    mon = ExtrapolationMonitor(model)
+    n_steps, al_every = 120, 30
+    state = run_with_extrapolation(sim, mon, state, al_every, al_every=al_every,
+                                   ensemble="nve", dt=0.001)  # warm-up
+    kernels = all_kernels()
+    torch_sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = run_with_extrapolation(sim, mon, state, n_steps, al_every=al_every,
+                                   ensemble="nve", dt=0.001)
+    torch_sync()
+    dt_al = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    plain = {k.name: k.plain_calls for k in kernels}
+    grades = mon.nbh_grades
+    n_evals = n_steps // al_every + 1
+    print(f"[7 AL path] {n} atoms, level 16, fp32, J=64: run_with_extrapolation {n_steps} "
+          f"steps, grades every {al_every} (spb {sim.steps_per_rebuild}, J "
+          f"{sim.max_neighbors} after the run)")
+    print(f"[7 AL path] launches {launches}; plain calls {plain}")
+    check(sim.max_neighbors == 64 and sim.steps_per_rebuild == 30,
+          "an AL segment tripped its flags and was retried")
+    check(launches["candidates_mega"] == n_evals, f"K5 launched {launches['candidates_mega']} "
+          f"times, not once per grade step ({n_evals})")
+    for k in kernels[:4]:
+        check(k.launches > 0, f"{k.name} was not launched on the AL path")
+    for k in kernels:
+        check(k.plain_calls == 0, f"{k.name}'s plain version ran on the AL path")
+    check(grades is not None and grades.shape == (n,) and bool(np.isfinite(grades).all()),
+          "non-finite or missing grades")
+    check(mon.max_grade > 0, "max grade is not positive")
+    check(bool(state.positions.isfinite().all()), "non-finite positions after AL")
+
+    torch_sync()
+    t0 = time.perf_counter()
+    st_md, _, fl, nl = sim.run_async(state, n_steps, dt=0.001, return_nl=True)
+    torch_sync()
+    dt_md = time.perf_counter() - t0
+    check(not bool(fl), "pure-MD run flags set")
+    rate_al, rate_md = n * n_steps / dt_al, n * n_steps / dt_md
+    ms_eval = (dt_al - dt_md) / n_evals * 1e3
+    print(f"[7 AL path] max grade {mon.max_grade:.4f}; with AL {rate_al:.1f} "
+          f"atom-steps/s ({dt_al:.4f} s), pure MD {rate_md:.1f} atom-steps/s "
+          f"({dt_md:.4f} s), {ms_eval:.3f} ms per grade eval ({n_evals} evals) on {card}")
+
+    # the modular energy path: K6 forward, K7 backward, through its entry point
+    reset_counts()
+    _, k, args = kernel_inputs(model, st_md.positions, st_md.cell, st_md.types, nl)
+    d = args[1].clone().requires_grad_(True)
+    e = site_energies_fused(model.tables, model.coeffs, d, *args[2:5])
+    (pair,) = torch.autograd.grad(e.sum(), d)
+    f_mod = window_giveback(pair, nl.mirror)
+    torch_sync()
+    mod = {k_.name: k_.launches for k_ in kernels}
+    print(f"[7 modular path] launches {mod}")
+    for name in ("basic_moments_fused", "basic_moments_vjp"):
+        check(mod[name] == 1, f"{name} was not launched on the modular path")
+    f_main = window_giveback(fm.pair_forces_mega(*args), nl.mirror)
+    e_main = fm.site_energies_mega(*args, k["esp"])
+    dfm, dem = max_err(f_mod, f_main), max_err(e.detach(), e_main)
+    print(f"[7 modular path] vs the fused path: max|dF|={dfm:.3e} max|de|={dem:.3e}")
+    check(dfm < TOL["pair_forces_mega"] and dem < TOL["site_energies_mega"],
+          "modular path disagrees with the fused path")
+
+    print(f"[7 AL kernels] {n} atoms, J=64, level 16, fp32: kernel vs plain, timed")
+    res = compare_al_kernels(model, st_md.positions, st_md.cell, st_md.types, nl, timing=True)
+    counts = {"candidates_mega": launches["candidates_mega"], **{
+        name: mod[name] for name in ("basic_moments_fused", "basic_moments_vjp")}}
+    rows = []
+    for kern in kernels[4:]:
+        err, ms, plain_ms = res[kern.name]
+        print(f"  {kern.name}: {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+        rows.append(dict(
+            name=kern.name, route="cuda", source=kern.source, replaces=kern.replaces,
+            launches=counts[kern.name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        ))
+    return rows
 
 
 def main() -> int:
@@ -283,6 +583,12 @@ def main() -> int:
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches[k.name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
         ))
+
+    # ---- 6. active-learning kernels, and the fp32 grade step vs float64
+    al_kernel_phase(m2, p32, ty, c32, swl)
+
+    # ---- 7. the AL path at full width
+    rows += al_path_phase(dev, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -6,13 +6,16 @@ reference the port is tested against. This package imports ``torch`` and never
 
 Subpackages
 -----------
-io       ``.mtp`` file format and basis-set generation (NumPy copies)
+io       ``.mtp`` and ``.cfg`` file formats and basis-set generation (NumPy
+         copies)
 ops      Chebyshev basis, plain torch moments, neighbor lists, and the
          wrappers of the hand-written CUDA kernels (window_disp,
-         fused_moments, window_giveback)
+         fused_moments, fused_candidates, fused_basic, window_giveback)
 kernels  the nvcc build of ``csrc/*.cu`` and the per-kernel launch counters
 models   the MTP model and its window-path energy/force evaluators
 md       MD state, the NVE integrator and the simulation driver
+al       MaxVol extrapolation grades, active-set construction and MD
+         with grade evaluation (active learning)
 utils    units, and weight conversion from a ``mtp_tpu`` model
 """
 

@@ -1,0 +1,291 @@
+"""Active-learning driver: extrapolation-grade evaluation during MD, with the
+reference's two observation styles and two-threshold selection semantics.
+
+Port of ``mtp_tpu/al/driver.py`` (single device; the sharded monitor waits
+for the multi-device slice, and AL under NVT/NPT for the other ensembles:
+:meth:`Simulation.run_async` runs NVE only).
+
+* LAMMPS style (reference README.md:60-82): grades computed every N steps on
+  request; per-atom grades and the scalar max grade are exposed as observables
+  (the analog of `fix pair` / `compute pair`; values are stale between
+  evaluations, as documented there).
+* MLIP-3 style (reference README.md:84-97): grades every evaluation; if
+  max_grade >= select_threshold the configuration is appended to the
+  preselected ``.cfg`` stream; if >= break_threshold the stream is flushed and
+  the run is terminated (flush-before-break contract,
+  pair_mtp_extrapolation.cpp:387-397).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mtp_tpu_torch.al.grades import (
+    candidates_and_forces,
+    cfg_grade,
+    grade_eval_window,
+    nbh_grades,
+)
+from mtp_tpu_torch.io.cfg_file import CfgWriter
+from mtp_tpu_torch.md.simulation import Simulation
+from mtp_tpu_torch.md.state import MDState
+from mtp_tpu_torch.models.mtp import MTPModel
+from mtp_tpu_torch.ops.neighbors import (
+    SortedNeighborList,
+    build_neighbor_list,
+    check_cell,
+    grid_shape,
+)
+
+
+class BreakThresholdExceeded(RuntimeError):
+    """Raised when max grade exceeds the break threshold (run terminated)."""
+
+    def __init__(self, max_grade: float):
+        super().__init__(
+            f"Exceeded Break Threshold: {max_grade:.5f}. Terminating simulation."
+        )
+        self.max_grade = max_grade
+
+
+@dataclasses.dataclass(eq=False)
+class ExtrapolationMonitor:
+    """Evaluates grades for a configuration and applies selection semantics.
+
+    Observables (mirroring extract_peratom/pvector,
+    pair_mtp_extrapolation.cpp:624-652): `.max_grade` (float) and
+    `.nbh_grades` (per-atom numpy array; neighborhood mode only). Stale
+    between evaluations by design. Both stay device tensors until read, so a
+    monitor with no thresholds never waits for the device; MLIP-3 style reads
+    the max grade at once (the thresholds need it).
+    """
+
+    model: MTPModel
+    select_threshold: Optional[float] = None
+    break_threshold: Optional[float] = None
+    output_path: Optional[str] = None
+    max_neighbors: int = 64
+
+    _max_grade: object = 0.0  # float, or a 0-d device tensor until read
+    _nbh_grades: object = None  # numpy array, device tensor until read, or None
+    _writer: Optional[CfgWriter] = None
+
+    def __post_init__(self):
+        if self.model.inverse_active_set is None:
+            raise ValueError(
+                "model has no MVS selection state; load a .mtp with an MVS "
+                "trailer or build one with mtp_tpu_torch.al.maxvol.build_mvs"
+            )
+        if self.output_path is not None:
+            self._writer = CfgWriter(self.output_path)
+
+    @property
+    def mlip3_style(self) -> bool:
+        return self.select_threshold is not None
+
+    @property
+    def max_grade(self) -> float:
+        if not isinstance(self._max_grade, float):
+            self._max_grade = float(self._max_grade)
+        return self._max_grade
+
+    @property
+    def nbh_grades(self) -> Optional[np.ndarray]:
+        if isinstance(self._nbh_grades, torch.Tensor):
+            self._nbh_grades = self._nbh_grades.detach().cpu().numpy()
+        return self._nbh_grades
+
+    def evaluate(self, state: MDState, *, refresh_forces: bool = False, nl=None):
+        """Compute grades for the current configuration; apply thresholds.
+
+        The forward pass is SHARED between forces and candidate vectors (the
+        reference's grade-step fusion, ComputeAlphaBasicRad
+        pair_mtp_extrapolation_kokkos.cpp:780-907). With
+        ``refresh_forces=True`` returns ``(grade, state)`` with forces,
+        energy and virial refreshed from that same pass.
+
+        `nl`: optional existing list (the Simulation's current
+        :class:`SortedNeighborList`, built at >= cutoff) -- skips the
+        rebuild and takes the window path (K1, K5, K3 on the card). The
+        beyond-cutoff (skin) pairs are masked by distance; the caller is
+        responsible for the Verlet guarantee (an unflagged simulation block
+        provides it).
+
+        Returns the grade as a 0-d device tensor unless thresholds are set
+        (MLIP-3 style reads it: the break decision needs the value).
+        """
+        out = self._compute(state, nl)
+        return self._commit(out, state, refresh_forces=refresh_forces)
+
+    def _compute(self, state: MDState, nl=None) -> dict:
+        """The device half of :meth:`evaluate`: queues the grade computation,
+        touches no monitor state, applies no thresholds. Drivers queue it
+        BEFORE reading run flags and `_commit` only accepted segments."""
+        model = self.model
+        if isinstance(nl, SortedNeighborList):
+            return grade_eval_window(
+                model, state.positions, state.types, state.cell, nl,
+                model.inverse_active_set, config_mode=model.configuration_mode,
+            )
+        if nl is None:
+            cutoff = model.cutoff
+            cell_h = state.cell.detach().cpu().numpy()
+            check_cell(cell_h, cutoff)
+            grid = grid_shape(cell_h, cutoff)
+            # a truncated neighbor list would silently UNDERESTIMATE grades --
+            # the one failure mode this subsystem exists to prevent -- so grow
+            # the capacity until the build fits
+            while True:
+                nl = build_neighbor_list(
+                    state.positions, state.cell, cutoff,
+                    max_neighbors=self.max_neighbors, grid=grid,
+                )
+                if not bool(nl.overflow):
+                    break
+                self.max_neighbors = int(self.max_neighbors * 1.5) + 8
+        out = candidates_and_forces(
+            model, state.positions, state.types, nl.idx, state.cell, nl.mirror,
+        )
+        b = out["b"]
+        if model.configuration_mode:
+            g = cfg_grade(b, model.inverse_active_set, state.n_atoms)
+            grades = None
+        else:
+            grades = nbh_grades(b, model.inverse_active_set)
+            g = torch.max(grades)
+        return dict(
+            forces=out["forces"], energy=out["energy"], max_grade=g,
+            grades=grades, virial=out["virial"],
+        )
+
+    def _commit(self, out: dict, state: MDState, *, refresh_forces: bool):
+        """Host half of :meth:`evaluate`: store the observables, apply the
+        MLIP-3 thresholds, optionally return the state with forces, energy
+        and virial refreshed from the shared pass."""
+        self._nbh_grades = out["grades"]
+        self._max_grade = out["max_grade"]
+        g = out["max_grade"]
+        if self.mlip3_style:
+            g = self.max_grade
+            self._apply_thresholds(state)
+        if refresh_forces:
+            new_state = dataclasses.replace(
+                state,
+                forces=out["forces"],
+                potential_energy=out["energy"],
+                virial=out["virial"],
+            )
+            return g, new_state
+        return g
+
+    def _apply_thresholds(self, state: MDState):
+        if self._writer is not None and self.max_grade >= self.select_threshold:
+            self._writer.write(
+                state.cell.detach().cpu().numpy(),
+                state.positions.detach().cpu().numpy(),
+                state.types.cpu().numpy(),
+                grades=None if self.model.configuration_mode else self.nbh_grades,
+                max_grade=self.max_grade,
+            )
+        if (
+            self.break_threshold is not None
+            and self.max_grade >= self.break_threshold
+        ):
+            # flush-before-break: no selected configuration may be lost
+            if self._writer is not None:
+                self._writer.close()
+            raise BreakThresholdExceeded(self.max_grade)
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
+def _grow_neighbors(sim: Simulation) -> None:
+    """Widen the Simulation's lists after an overflow (x1.5 + 8, rounded up
+    to a multiple of 8), as the JAX driver does."""
+    grown = int(sim.max_neighbors * 1.5) + 8
+    sim.max_neighbors = -(-grown // 8) * 8
+
+
+def _first_list(sim: Simulation, state: MDState) -> SortedNeighborList:
+    """The Simulation's sorted list for the first grade step, grown until it
+    fits. The JAX driver grades the starting state on the standalone path;
+    here every grade step, the first included, takes the window path."""
+    cell_h = state.cell.detach().cpu().numpy()
+    cut_skin = sim.model.cutoff + sim.skin
+    check_cell(cell_h, cut_skin)
+    grid = grid_shape(cell_h, cut_skin)
+    while True:
+        nl = sim.rebuild(state, grid=grid, max_neighbors=sim.max_neighbors)
+        if not bool(nl.overflow):
+            return nl
+        _grow_neighbors(sim)
+
+
+def run_with_extrapolation(
+    sim: Simulation,
+    monitor: ExtrapolationMonitor,
+    state: MDState,
+    n_steps: int,
+    *,
+    al_every: int = 1,
+    observer=None,
+    **run_kwargs,
+):
+    """MD with periodic grade evaluation (the `fix pair N ... extrapolation 1`
+    pattern, reference README.md:70-76).
+
+    Grade-step economics match the reference's on-device AL pipeline
+    (ComputeAlphaBasicRad, pair_mtp_extrapolation_kokkos.cpp:780-907):
+
+    * the grade evaluation REUSES the simulation's last neighbor list (no
+      per-eval rebuild; the list is valid within the skin whenever the
+      segment's flags are clear), and
+    * SHARES its forward pass with the force refresh, so the next MD segment
+      starts from the forces the grade step computed (``refresh=False``).
+
+    Retries a segment with grown capacity / halved rebuild interval on
+    overflow / staleness (the `Simulation.run` contract). `run_kwargs` go to
+    :meth:`Simulation.run_async` (``ensemble``, ``dt``).
+
+    Returns the final state; raises :class:`BreakThresholdExceeded` in MLIP-3
+    style when the break threshold is hit (stream flushed first).
+    """
+    done = 0
+    aux = None
+    _, state = monitor.evaluate(state, refresh_forces=True, nl=_first_list(sim, state))
+    while done < n_steps:
+        k = min(al_every, n_steps - done)
+        while True:
+            new_state, new_aux, flags, nl = sim.run_async(
+                state, k, aux=aux, return_nl=True, refresh=False, **run_kwargs,
+            )
+            # speculative grade dispatch BEFORE the flag read: the device
+            # queues the grades behind the segment. _compute is pure (no
+            # monitor state, no cfg write, no break), so a tripped segment
+            # just discards it and retries.
+            pending = monitor._compute(new_state, nl=nl)
+            ovf, stale = torch.stack([flags.overflow, flags.stale]).tolist()
+            if ovf:
+                _grow_neighbors(sim)
+                continue
+            if stale:
+                if sim.steps_per_rebuild <= 1:
+                    raise RuntimeError(
+                        "Verlet staleness at steps_per_rebuild=1 during AL "
+                        "run: system diverging or skin too small"
+                    )
+                sim.steps_per_rebuild = max(1, sim.steps_per_rebuild // 2)
+                continue
+            break
+        done += k
+        _, state = monitor._commit(pending, new_state, refresh_forces=True)
+        aux = new_aux
+        if observer is not None:
+            observer(state, monitor)
+    return state

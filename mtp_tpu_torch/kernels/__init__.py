@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels: build (``_build``) and registry.
 
 Each kernel's wrapper lives beside its plain PyTorch twin in ``ops/``; this
-module only lists them, in the order the main path runs them per step.
+module only lists them: the main path's four in the order it runs them per
+step, the kernel active learning adds, and all seven.
 """
 
 from __future__ import annotations
@@ -18,7 +19,23 @@ def main_path_kernels():
     return [K1, K2, K3, K4]
 
 
+def al_path_kernels():
+    """The kernel the active-learning path adds to the main path's four: K5
+    candidates_mega, once per grade step (with K1 and K3 around it)."""
+    from mtp_tpu_torch.ops.fused_candidates import K5
+
+    return [K5]
+
+
+def all_kernels():
+    """K1-K7 in order: the main path's four, K5, and K6 basic_moments_fused
+    with its vjp K7 (the modular path of ``ops/fused_basic.py``)."""
+    from mtp_tpu_torch.ops.fused_basic import K6, K7
+
+    return main_path_kernels() + al_path_kernels() + [K6, K7]
+
+
 def reset_counts() -> None:
-    for k in main_path_kernels():
+    for k in all_kernels():
         k.launches = 0
         k.plain_calls = 0

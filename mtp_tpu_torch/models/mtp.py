@@ -18,6 +18,7 @@ Port of ``mtp_tpu/models/mtp.py``:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,13 +52,18 @@ class MTPCoeffs:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MTPModel:
-    """Schedule (host tables) + coefficients and kernel tables on a device."""
+    """Schedule (host tables) + coefficients and kernel tables on a device,
+    and the active-learning selection state of the file's MVS trailer
+    (``None``/``False`` when the file has none)."""
 
     schedule: MTPSchedule
     coeffs: MTPCoeffs
     tables: MegaTables
     dtype: torch.dtype
     device: torch.device
+    inverse_active_set: Optional[torch.Tensor] = None  # (P, P), model dtype and device
+    active_set: Optional[np.ndarray] = None  # (P, P) float64
+    configuration_mode: bool = False
 
     @property
     def cutoff(self) -> float:
@@ -78,13 +84,20 @@ class MTPModel:
             alpha_index_times=m.alpha_index_times,
             alpha_moment_mapping=m.alpha_moment_mapping,
         )
+        mvs = m.mvs
         return cls.from_arrays(
             sched, m.radial_coeffs, m.species_coeffs, m.moment_coeffs,
             device=device, dtype=dtype,
+            inverse_active_set=None if mvs is None else mvs.inverse_active_set,
+            active_set=None if mvs is None else mvs.active_set,
+            configuration_mode=mvs is not None and mvs.configuration_mode,
         )
 
     @classmethod
-    def from_arrays(cls, sched, radial, species, moment, *, device, dtype) -> "MTPModel":
+    def from_arrays(
+        cls, sched, radial, species, moment, *, device, dtype,
+        inverse_active_set=None, active_set=None, configuration_mode=False,
+    ) -> "MTPModel":
         device = torch.device(device)
 
         def t(a):
@@ -98,6 +111,9 @@ class MTPModel:
             tables=build_tables(sched, device),
             dtype=dtype,
             device=device,
+            inverse_active_set=None if inverse_active_set is None else t(inverse_active_set),
+            active_set=None if active_set is None else np.array(active_set, dtype=np.float64),
+            configuration_mode=bool(configuration_mode),
         )
 
     @classmethod

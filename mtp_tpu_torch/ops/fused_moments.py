@@ -80,6 +80,7 @@ class MegaTables:
     tab: torch.Tensor
     n_waves: int
     mapping: torch.Tensor  # (n_scalar,) int64: moment slot of each coefficient
+    mapping_i32: torch.Tensor  # the same slots as int32, for the K5 kernel
 
 
 def _group(node, rows):
@@ -145,6 +146,7 @@ def build_tables(sched: MTPSchedule, device) -> MegaTables:
         tab=torch.as_tensor(flat, device=device),
         n_waves=len(waves),
         mapping=torch.as_tensor(sched.mapping, device=device),
+        mapping_i32=torch.as_tensor(sched.mapping.astype(np.int32), device=device),
     )
 
 
@@ -154,7 +156,7 @@ def build_tables(sched: MTPSchedule, device) -> MegaTables:
 def _site_energies_plain(sched, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, esp):
     disp = dispT.permute(2, 1, 0)  # (N, J, 3)
     coeffs = _types.SimpleNamespace(radial_coeffs=radial_coeffs)
-    m_basic = moments.basic_moments(
+    m_basic, _ = moments.basic_moments(
         sched, coeffs, disp, (mask > 0).T, itypes.long(), jtypes_t.T.long()
     )
     m = moments.contract_dag(sched, m_basic)
@@ -185,9 +187,12 @@ def pair_forces_mega_plain(tables, dispT, mask, itypes, jtypes_t, radial_coeffs,
 # --------------------------------------------------------------- kernels ----
 
 
-def _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_atom):
-    """Validate what the kernel reads through raw pointers: the sizes it is
-    passed come from `tables`' schedule, so every operand must match them."""
+def _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_atom,
+           *, gamma=None):
+    """Validate what a kernel of this family reads through raw pointers: the
+    sizes it is passed come from `tables`' schedule, so every operand must
+    match them. `xi_full`, `per_atom` (N,) and `gamma` (B, N) are checked
+    where given."""
     s = tables.sched
     _, j, n = dispT.shape
     f32 = torch.float32
@@ -195,10 +200,14 @@ def _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_at
     want = (
         (dispT, f32, (3, j, n)), (mask, f32, (j, n)), (itypes, torch.int32, (n,)),
         (jtypes_t, torch.int32, (j, n)), (radial_coeffs, f32, (ns, ns, mu, rb)),
-        (xi_full, f32, (s.alpha_moments_count,)), (tables.tab, torch.int32, tables.tab.shape),
+        (tables.tab, torch.int32, tables.tab.shape),
     )
+    if xi_full is not None:
+        want += ((xi_full, f32, (s.alpha_moments_count,)),)
     if per_atom is not None:
         want += ((per_atom, f32, (n,)),)
+    if gamma is not None:
+        want += ((gamma, f32, (s.basic_count, n)),)
     for t, dtype, shape in want:
         if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(
@@ -214,7 +223,7 @@ def _launch(kernel, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_ful
     _, j, n = dispT.shape
     kernel.launch(
         dispT.data_ptr(), mask.data_ptr(), itypes.data_ptr(), jtypes_t.data_ptr(),
-        radial_coeffs.data_ptr(), xi_full.data_ptr(),
+        radial_coeffs.data_ptr(), 0 if xi_full is None else xi_full.data_ptr(),
         0 if per_atom is None else per_atom.data_ptr(),
         tables.tab.data_ptr(), out.data_ptr(),
         n, j, s.species_count, s.radial_funcs_count, s.radial_basis_size,

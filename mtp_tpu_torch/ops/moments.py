@@ -129,7 +129,9 @@ def basic_moments(sched: MTPSchedule, coeffs, disp, mask, itypes, jtypes):
       mask: (N, J) bool, True for real neighbors within the cutoff.
       itypes: (N,) central types; jtypes: (N, J) neighbor types (0-indexed).
 
-    Returns m_basic (N, B).
+    Returns (m_basic (N, B), aux): aux holds the per-pair tables active
+    learning reuses, ``cheb`` (N, J, RB) enveloped Chebyshev values, ``U``
+    (N, J, B) unit-vector power products, ``dist`` (N, J) and ``mask``.
     """
     dev = disp.device
     basic = sched.basic
@@ -137,7 +139,7 @@ def basic_moments(sched: MTPSchedule, coeffs, disp, mask, itypes, jtypes):
     # masked slots get d2 = 1 before the sqrt: pads and self pairs have
     # disp = 0, and 0 * inf would poison the sums with NaN
     dist = torch.sqrt(torch.where(mask, d2, torch.ones_like(d2)))
-    _, f = _radial_part(sched, coeffs, dist, itypes, jtypes)
+    cheb, f = _radial_part(sched, coeffs, dist, itypes, jtypes)
 
     u = disp / dist[..., None]
     upow = [torch.ones_like(u)]
@@ -151,7 +153,8 @@ def basic_moments(sched: MTPSchedule, coeffs, disp, mask, itypes, jtypes):
     U = upow[..., ax, 0] * upow[..., ay, 1] * upow[..., az, 2]  # (N, J, B)
     F = f[..., mu]  # (N, J, B)
     w = mask.to(disp.dtype)
-    return torch.einsum("njb,nj->nb", F * U, w)
+    m_basic = torch.einsum("njb,nj->nb", F * U, w)
+    return m_basic, dict(cheb=cheb, U=U, dist=dist, mask=mask)
 
 
 def contract_dag(sched: MTPSchedule, m_basic):
@@ -179,7 +182,7 @@ def readout(sched: MTPSchedule, coeffs, moments, itypes):
 
 def site_energies(sched: MTPSchedule, coeffs, disp, mask, itypes, jtypes):
     """Per-atom MTP energies as a differentiable function of displacements."""
-    m_basic = basic_moments(sched, coeffs, disp, mask, itypes, jtypes)
+    m_basic, _ = basic_moments(sched, coeffs, disp, mask, itypes, jtypes)
     moments = contract_dag(sched, m_basic)
     e, _ = readout(sched, coeffs, moments, itypes)
     return e

@@ -17,13 +17,14 @@ from mtp_tpu_torch.ops.moments import MTPSchedule
 
 
 def model_from_jax(jax_model, device="cpu", dtype=torch.float64) -> MTPModel:
-    """The port's :class:`MTPModel` holding a ``mtp_tpu.MTPModel``'s schedule
-    and coefficients, on `device` in `dtype`."""
+    """The port's :class:`MTPModel` holding a ``mtp_tpu.MTPModel``'s schedule,
+    coefficients and active-learning selection state, on `device` in `dtype`."""
     s = jax_model.schedule
     sched = MTPSchedule(
         **{f.name: getattr(s, f.name) for f in dataclasses.fields(MTPSchedule)}
     )
     c = jax_model.coeffs
+    inv = jax_model.inverse_active_set
     return MTPModel.from_arrays(
         sched,
         np.asarray(c.radial_coeffs),
@@ -31,4 +32,7 @@ def model_from_jax(jax_model, device="cpu", dtype=torch.float64) -> MTPModel:
         np.asarray(c.moment_coeffs),
         device=device,
         dtype=dtype,
+        inverse_active_set=None if inv is None else np.asarray(inv),
+        active_set=jax_model.active_set,
+        configuration_mode=jax_model.configuration_mode,
     )

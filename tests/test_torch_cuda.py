@@ -11,7 +11,11 @@ Tolerances (fp32 on the card, kernel vs plain version on the same inputs):
 K1 window_disp exact (it repeats the plain version's IEEE operations in the
 same order); K4 site energies 1e-5 eV; K2 pair forces 5e-5 eV/A; K3
 give-back 1e-5 eV/A. The plain path's own fp32-vs-float64 noise at level 16
-is ~5e-7 eV, ~1.2e-6 eV/A and ~4e-6 eV/A for these quantities.
+is ~5e-7 eV, ~1.2e-6 eV/A and ~4e-6 eV/A for these quantities. K5 as K4 and
+K2 for its site energies and pair forces, and 1e-5 of the largest entry for
+its basis members and radial rows (sums of up to ~60 terms of scale ~10);
+K6 1e-5 of the largest basic moment; K7 (the gradient of the modular energy
+path) 5e-5 eV/A.
 """
 
 import numpy as np
@@ -23,6 +27,8 @@ from mtp_tpu_torch.kernels import main_path_kernels
 from mtp_tpu_torch.md.simulation import Simulation, make_lattice
 from mtp_tpu_torch.md.state import init_state, thermalize
 from mtp_tpu_torch.models.mtp import MTPModel, window_constants
+from mtp_tpu_torch.ops import fused_basic as fb
+from mtp_tpu_torch.ops import fused_candidates as fc
 from mtp_tpu_torch.ops import fused_moments as fm
 from mtp_tpu_torch.ops import window_disp as wd
 from mtp_tpu_torch.ops import window_giveback as wg
@@ -140,3 +146,70 @@ def test_main_path_launches_every_kernel(dev):
     for kk, (l0, p0) in zip(ks, before):
         assert kk.launches > l0, kk.name
         assert kk.plain_calls == p0, kk.name
+
+
+def _rel(a, b):
+    return _err(a, b) / float(b.double().abs().max())
+
+
+@pytest.mark.parametrize("level,species", [(8, 2), (16, 2), (16, 1)])
+def test_candidates_kernel_matches_plain(dev, level, species):
+    model, pos_s, c, _, swl, k = _case(dev, level, species)
+    args = _inputs(model, pos_s, c, swl, k)
+    got = fc.candidates_mega(*args, k["esp"])
+    want = fc.candidates_mega_plain(*args, k["esp"])
+    torch.cuda.synchronize()
+    for key in got:
+        assert bool(got[key].isfinite().all()), key
+        assert got[key].shape == want[key].shape, key
+    assert _err(got["site_e"], want["site_e"]) < 1e-5
+    assert _err(got["pair_tT"], want["pair_tT"]) < 5e-5
+    assert _rel(got["basis_members"], want["basis_members"]) < 1e-5
+    assert _rel(got["rad"], want["rad"]) < 1e-5
+    # the grade step's pair forces and energies are the MD kernels' own
+    assert _err(got["pair_tT"], fm.pair_forces_mega(*args)) < 1e-6
+    assert _err(got["site_e"], fm.site_energies_mega(*args, k["esp"])) < 1e-6
+
+
+def test_candidates_kernel_is_deterministic(dev):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    model, pos_s, c, _, swl, k = _case(dev, 16, 2)
+    args = _inputs(model, pos_s, c, swl, k)
+    a = fc.candidates_mega(*args, k["esp"])
+    b = fc.candidates_mega(*args, k["esp"])
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_basic_moments_kernels_match_plain(dev):
+    """K6 against its twin; K7 through the autograd backward of the modular
+    energy path, against the plain twin's gradient."""
+    model, pos_s, c, _, swl, k = _case(dev, 16, 2)
+    args = _inputs(model, pos_s, c, swl, k)
+    mb = fb.basic_moments_fused(*args[:6])
+    assert _rel(mb, fb.basic_moments_fused_plain(*args[:6])) < 1e-5
+    d = args[1].clone().requires_grad_(True)
+    launches = fb.K7.launches
+    e = fb.site_energies_fused(model.tables, model.coeffs, d, *args[2:5])
+    (g,) = torch.autograd.grad(e.sum(), d)
+    assert fb.K7.launches == launches + 1
+    assert _err(e.detach(), fm.site_energies_mega(*args, k["esp"])) < 1e-5
+    assert _err(g, fm.pair_forces_mega_plain(*args)) < 5e-5
+    gamma = torch.rand((model.schedule.basic_count, pos_s.shape[0]), device=dev)
+    direct = fb.basic_moments_vjp_plain(*args[:6], gamma)
+    (g2,) = torch.autograd.grad(fb.basic_moments_fused(args[0], d, *args[2:6]), d, gamma)
+    assert _rel(g2, direct) < 1e-5
+
+
+def test_al_wrappers_refuse_bad_operands(dev):
+    model, pos_s, c, _, swl, k = _case(dev, 8, 2)
+    args = _inputs(model, pos_s, c, swl, k)
+    n = pos_s.shape[0]
+    with pytest.raises(ValueError):
+        fc.candidates_mega(args[0], args[1].double(), *args[2:], k["esp"])
+    with pytest.raises(ValueError):
+        fc.candidates_mega(*args, k["esp"][:-1])
+    with pytest.raises(ValueError):
+        fb.basic_moments_fused(args[0], args[1], args[2][:, :-1].contiguous(), *args[3:6])
+    with pytest.raises(ValueError):
+        fb.basic_moments_fused(args[0], args[1], args[2], args[3][: n - 1], *args[4:6])

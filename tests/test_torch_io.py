@@ -38,15 +38,17 @@ def _assert_same_data(a, b):
 
 
 def test_import_leaves_jax_out():
-    """`import mtp_tpu_torch` (every module of the main path, and the root
-    chip_smoke.py) must not import jax. A subprocess: this test process
-    already has jax loaded."""
+    """`import mtp_tpu_torch` (every module of the main path and of active
+    learning, and the root chip_smoke.py) must not import jax. A
+    subprocess: this test process already has jax loaded."""
     code = (
         "import sys\n"
         "import mtp_tpu_torch\n"
         "import mtp_tpu_torch.md.simulation, mtp_tpu_torch.utils.convert\n"
         "import mtp_tpu_torch.kernels, mtp_tpu_torch.ops.neighbors\n"
         "import mtp_tpu_torch.utils.prof, chip_smoke\n"
+        "import mtp_tpu_torch.al.driver, mtp_tpu_torch.al.maxvol, mtp_tpu_torch.io.cfg_file\n"
+        "import mtp_tpu_torch.ops.fused_basic, mtp_tpu_torch.ops.fused_candidates\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mtp_tpu' or m.startswith('mtp_tpu.'))\n"
         "print(bad)\n"

@@ -28,13 +28,21 @@ from mtp_tpu.models.mtp import (
 )
 from mtp_tpu.ops.neighbors import build_sorted_neighbor_list as sorted_jax
 from mtp_tpu.ops.neighbors import grid_shape
+from mtp_tpu.ops.pallas_moments import basic_moments_fused as bmf_jax
+from mtp_tpu.ops.pallas_moments import candidates_mega as cand_jax
 from mtp_tpu.ops.pallas_moments import pair_forces_mega as pf_jax
 from mtp_tpu.ops.pallas_moments import site_energies_mega as se_jax
 from mtp_tpu.ops.window_disp import window_disp as wd_jax
 from mtp_tpu.ops.window_giveback import giveback_reference
-from mtp_tpu_torch.kernels import main_path_kernels
+from mtp_tpu_torch.kernels import all_kernels, main_path_kernels
 from mtp_tpu_torch.models.mtp import readout_vector
 from mtp_tpu_torch.ops import moments
+from mtp_tpu_torch.ops.fused_basic import (
+    basic_moments_fused,
+    basic_moments_vjp_plain,
+    site_energies_fused,
+)
+from mtp_tpu_torch.ops.fused_candidates import candidates_mega
 from mtp_tpu_torch.ops.fused_moments import (
     build_tables,
     pair_forces_mega,
@@ -331,6 +339,12 @@ def test_fused_kernel_operands_must_match_the_schedule():
     for change in bad:
         with pytest.raises(ValueError):
             _check(two.tables, **{**ops, **change})
+    # K6/K7 take no readout vector; K7's gamma is (B, N)
+    b = two.schedule.basic_count
+    _check(two.tables, **{**ops, "xi_full": None, "per_atom": None},
+           gamma=torch.zeros((b, n), dtype=f32))
+    with pytest.raises(ValueError):
+        _check(two.tables, **ops, gamma=torch.zeros((b + 1, n), dtype=f32))
 
 
 def test_launch_counter_counts_only_successful_launches():
@@ -346,3 +360,86 @@ def test_launch_counter_counts_only_successful_launches():
     with pytest.raises(RuntimeError, match="error 700"):
         k.launch(1, 2)
     assert k.launches == 1 and k.plain_calls == 0
+
+
+@pytest.fixture(scope="module")
+def al_case(mtp_level8_2spec):
+    """The smallest fcc box with 3 bins per dimension at the level-8 cutoff
+    (4x4x4 cells, 256 atoms: one tile of each JAX kernel), jittered, two
+    species, J = 64; the kernels' inputs from the port's sorted list."""
+    from mtp_tpu_torch.md.simulation import make_lattice as lattice_t
+    from mtp_tpu_torch.models.mtp import window_constants
+    from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape as grid_t
+
+    jm = JaxModel.from_data(mtp_level8_2spec, dtype=jnp.float64)
+    tm = model_from_jax(jm, dtype=torch.float64)
+    pos, types, cell = lattice_t("fcc", 4.0, (4, 4, 4), type_pattern=(0, 1))
+    assert min(grid_t(cell, tm.cutoff)) >= 3
+    pos = pos + np.random.default_rng(4).normal(0, 0.1, pos.shape)
+    p, c = _t(pos), _t(cell)
+    swl = build_sorted_neighbor_list(p, c, tm.cutoff, max_neighbors=64, grid=grid_t(cell, tm.cutoff))
+    assert not bool(swl.overflow)
+    k = window_constants(tm, _t(types, torch.int32), swl)
+    dispT = window_disp(p[swl.order], swl.idx, c)
+    mask = (((dispT**2).sum(0) <= tm.cutoff**2) & k["pair_valid_t"]).double()
+    return jm, tm, dispT.numpy(), mask.numpy(), k["it_row"].numpy(), k["jtypes_t"].numpy(), \
+        k["esp"].numpy()
+
+
+def test_candidates_mega_matches_jax_kernel(al_case):
+    """K5's plain twin against the interpreted JAX candidates kernel: site
+    energies, scalar-basis members, radial rows and pair forces."""
+    jm, tm, dispT, mask, it, jt, esp = al_case
+    want = cand_jax(*_jax_args(jm, dispT, mask, it, jt), jnp.asarray(esp)[None, :])
+    got = candidates_mega(*_torch_args(tm, dispT, mask, it, jt), _t(esp))
+    for key in ("site_e", "basis_members", "rad", "pair_tT"):
+        assert got[key].shape == want[key].shape, key
+        assert np.max(np.abs(got[key].numpy() - np.asarray(want[key]))) < TOL, key
+    assert np.abs(np.asarray(want["rad"])).max() > 1.0  # a non-trivial block
+
+
+def test_basic_moments_fused_and_vjp_match_jax_kernels(al_case):
+    """K6 (forward) and K7 (its vjp, through the autograd backward) against
+    the interpreted JAX kernels and jax.vjp, with a cotangent gamma."""
+    import jax
+
+    jm, tm, dispT, mask, it, jt, _ = al_case
+    ja = _jax_args(jm, dispT, mask, it, jt)[:6]
+    want, vjp = jax.vjp(lambda d: bmf_jax(ja[0], d, *ja[2:]), jnp.asarray(dispT))
+    gamma = np.random.default_rng(9).normal(size=np.asarray(want).shape)
+    (want_pair,) = vjp(jnp.asarray(gamma))
+    targs = _torch_args(tm, dispT, mask, it, jt)[:6]
+    d = targs[1].clone().requires_grad_(True)
+    mb = basic_moments_fused(targs[0], d, *targs[2:])
+    assert np.max(np.abs(mb.detach().numpy() - np.asarray(want))) < TOL
+    (pair,) = torch.autograd.grad(mb, d, _t(gamma))
+    assert np.max(np.abs(pair.numpy() - np.asarray(want_pair))) < TOL
+    direct = basic_moments_vjp_plain(*targs, _t(gamma))
+    assert np.max(np.abs(direct.numpy() - np.asarray(want_pair))) < TOL
+
+
+def test_site_energies_fused_is_the_mega_energy(al_case):
+    """The modular energy path (K6, plain DAG and readout; K7 backward) gives
+    the fused path's site energies and pair forces (K4, K2)."""
+    jm, tm, dispT, mask, it, jt, esp = al_case
+    targs = _torch_args(tm, dispT, mask, it, jt)
+    d = targs[1].clone().requires_grad_(True)
+    e = site_energies_fused(tm.tables, tm.coeffs, d, *targs[2:5])
+    np.testing.assert_allclose(e.detach().numpy(), site_energies_mega(*targs, _t(esp)).numpy(),
+                               rtol=0, atol=TOL)
+    (g,) = torch.autograd.grad(e.sum(), d)
+    assert np.max(np.abs(g.numpy() - pair_forces_mega(*targs).numpy())) < TOL
+
+
+def test_al_wrappers_run_plain_twins_on_cpu(al_case):
+    """K5-K7 on the CPU: each plain counter moves, no kernel launches."""
+    _, tm, dispT, mask, it, jt, esp = al_case
+    ks = all_kernels()[4:]
+    assert [k.name for k in ks] == ["candidates_mega", "basic_moments_fused", "basic_moments_vjp"]
+    before = [k.plain_calls for k in ks]
+    targs = _torch_args(tm, dispT, mask, it, jt)
+    candidates_mega(*targs, _t(esp))
+    d = targs[1].clone().requires_grad_(True)
+    basic_moments_fused(targs[0], d, *targs[2:6]).sum().backward()
+    for k, p0 in zip(ks, before):
+        assert k.launches == 0 and k.plain_calls == p0 + 1, k.name

@@ -124,3 +124,29 @@ def test_model_load_and_fp32(tmp_path):
         assert torch.equal(ta, tb)
     assert a.schedule == b.schedule
     assert a.cutoff == m.max_dist
+
+
+@pytest.mark.parametrize("energy_weight", [0.0, 1.0], ids=["neighborhood", "configuration"])
+def test_mvs_state_survives_loading(tmp_path, energy_weight):
+    """A .mtp with an MVS trailer keeps its selection state in the port, as
+    in mtp_tpu: the inverse active set on the model's device in its dtype,
+    the active set as numpy, and the mode; model_from_jax carries all three."""
+    from mtp_tpu_torch.io.mtp_file import MVSData
+
+    m = make_mtp(8, species_count=2, seed=3)
+    p = m.coeff_count
+    a = np.random.default_rng(7).normal(size=(p, p)) + 3.0 * np.eye(p)
+    m.mvs = MVSData(energy_weight, 0.0, 0.0, 1.0 - energy_weight, 2.0, a, np.linalg.inv(a).T)
+    path = str(tmp_path / "al.mtp")
+    save_mtp(path, m)
+    jm = JaxModel.load(path, dtype=jnp.float64)
+    for tm in (MTPModel.load(path, dtype=torch.float64), model_from_jax(jm)):
+        assert tm.configuration_mode is jm.configuration_mode is bool(energy_weight)
+        assert isinstance(tm.active_set, np.ndarray)
+        np.testing.assert_array_equal(tm.active_set, jm.active_set)
+        inv = tm.inverse_active_set
+        assert inv.dtype == torch.float64 and inv.device == tm.device
+        np.testing.assert_allclose(inv.numpy(), np.asarray(jm.inverse_active_set), rtol=0, atol=1e-15)
+    plain = MTPModel.from_data(make_mtp(8, seed=0))
+    assert plain.inverse_active_set is None and plain.active_set is None
+    assert not plain.configuration_mode
