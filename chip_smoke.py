@@ -18,7 +18,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    finite positions and energies, every kernel launched and no plain
    version called during the run.
 5. Each kernel at the main path's shapes against its plain version, with
-   its time and the plain version's time (CUDA events).
+   its time and the plain version's time (CUDA events), its bound (the
+   larger of its bytes over 3.35 TB/s and its fp32 operations on these
+   inputs over 67 TFLOP/s) and what bounds it, its launches per main-path
+   step and its share of the bound; and the fused kernels' device time by
+   stage kernel (``torch.profiler``). The stage split runs last, after
+   phase 7: a profiler session slows the host-bound runs that follow it in
+   the same process, and phase 7 times two of them against each other.
 6. Active-learning kernels on the phase-3 box, with an MVS state built by
    ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
    K5 against its plain twin on every output, K6 and K7 (through the autograd
@@ -29,7 +35,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    16, one species, an MVS from three perturbed 4,000-atom boxes, the
    32,000-atom box equilibrated 60 steps, then ``run_with_extrapolation`` for
    120 NVE steps graded every 30 (5 grade steps, the initial one included)
-   and the same 120 steps of plain ``run_async``, timed. K5 launched 5 times,
+   and the same 120 steps of plain ``run_async``, both warmed up once and
+   timed in turns over three rounds. K5 launched 5 times in the first,
    K1-K4 launched, no plain twin called. Then the modular energy path
    (``site_energies_fused``: K6 forward, K7 backward) drives K6 and K7 once
    each, and K5, K6 and K7 at these shapes are held against their plain
@@ -81,6 +88,8 @@ TOL_K6_REL, TOL_K7 = 1e-5, 5e-5
 # 4e-5), measured on an H100. Each run prints its own rounding floor beside
 # the error.
 GATE_B_REL, GATE_GRADE_REL, GATE_MAX_GRADE_REL = 1e-5, 1e-2, 1e-3
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def check(cond, msg):
@@ -115,6 +124,72 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def kernel_work(name, model, n, j, live):
+    """(flops, bytes) of one call of kernel `name` on these inputs: every
+    input read once and every output written once; the fp32 operations the
+    function needs (an FMA is 2), not those the kernel happens to do. Per
+    live pair (`live` pairs with mask > 0) each quantity is counted once:
+    the geometry, the Chebyshev values (and derivatives), f_mu (and f'_mu),
+    each distinct monomial of rank >= 2 as a lower one times a unit-vector
+    component (1), the B moment FMAs, and the force tail grouped by monomial
+    (G_t and G'_t per term, P, Q and D_a per monomial, D_a from the lower
+    monomials already built). Per atom each DAG product once forward (a
+    multiply and an FMA, 3) and once in reverse (mult * dm once, two FMAs,
+    5). K1 and K3 are elementwise."""
+    from mtp_tpu_torch.ops.fused_moments import monomials
+
+    if name == "window_disp":  # 3 subtractions, two 3x3 products, rint
+        return 39 * j * n, 12 * n + 4 * j * n + 72 + 12 * j * n
+    if name == "window_giveback":  # T(own) - T(mirror), summed
+        return 6 * j * n, 12 * j * n + 4 * j * n + 12 * n
+    s = model.schedule
+    B, M, MU, RB = (s.basic_count, s.alpha_moments_count, s.radial_funcs_count,
+                    s.radial_basis_size)
+    S, n_scal, P = s.species_count, len(s.mapping), model.tables.n_prod
+    monos = monomials(s.max_rank)
+    NT = len(monos)
+    # D_a += G_t * (alpha_a * U_(t - e_a)): an FMA, and a multiply when alpha_a > 1
+    d_terms = sum(2 + (a > 1) for m in monos for a in m if a)
+    geo = 16  # d2 5, sqrt, 1/d, u 3, ksi 3, d - hi, envelope 2
+    cheb = 2 + 2 * (RB - 2)  # ksi * env, 2 ksi, an FMA per further value
+    values = geo + cheb + 2 * MU * RB + (NT - 4)  # geometry, f_mu, monomials
+    basic = values + MU + 2 * B  # f_mu * w, the moment FMAs
+    deriv = 7 + 5 * (RB - 2) + 2 * MU * RB  # Chebyshev derivatives, f'_mu
+    contract = 4 * B + 2 * NT + 3 * (NT - 1) + d_terms + 14  # G, G'; P, Q, D; T
+    gmu_rad = 2 * B + RB + 2 * MU * RB  # K5: Gmu, w * cheb_r, the radial rows
+    fwd, readout, rev = 3 * P, 2 * n_scal + 1, M + 5 * P
+    pairs_in = 20 * j * n + 4 * n  # dispT, mask, jtypes_t; itypes
+    return {
+        "pair_forces_mega": (live * (basic + deriv + contract) + n * (fwd + rev),
+                             pairs_in + 12 * j * n),
+        "site_energies_mega": (live * basic + n * (fwd + readout), pairs_in + 8 * n),
+        "basic_moments_fused": (live * basic, pairs_in + 4 * B * n),
+        "basic_moments_vjp": (live * (values + deriv + contract),
+                              pairs_in + 4 * B * n + 12 * j * n),
+        "candidates_mega": (
+            live * (basic + deriv + contract + gmu_rad) + n * (fwd + readout + rev),
+            pairs_in + 8 * n + 4 * n * (n_scal + S * MU * RB) + 12 * j * n,
+        ),
+    }[name]
+
+
+def bound(name, model, n, j, live):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    fp32 operations over the peak rate."""
+    flops, nbytes = kernel_work(name, model, n, j, live)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_row(kern, launches, err, ms, plain_ms, model, n, j, live):
+    bound_ms, bound_by = bound(kern.name, model, n, j, live)
+    return dict(
+        name=kern.name, route="cuda", source=kern.source, replaces=kern.replaces,
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,  # no single PyTorch call computes these
+    )
+
+
 def kernel_inputs(model, state_pos, cell, types, swl):
     """Sorted positions, the window constants and the kernels' inputs."""
     from mtp_tpu_torch.models.mtp import window_constants
@@ -132,7 +207,12 @@ def kernel_inputs(model, state_pos, cell, types, swl):
 
 def compare_kernels(model, pos, cell, types, swl, timing):
     """Each kernel vs its plain version on the same inputs. Returns
-    {name: (max_abs_err, ms, plain_ms)}."""
+    ({name: (max_abs_err, ms, plain_ms)}, live pairs, {entry point: call});
+    the kernels are timed, and the calls for `stage_ms` returned, only with
+    `timing`."""
+    import torch
+
+    from mtp_tpu_torch.ops import fused_basic as fb
     from mtp_tpu_torch.ops import fused_moments as fm
     from mtp_tpu_torch.ops import window_disp as wd
     from mtp_tpu_torch.ops import window_giveback as wg
@@ -170,7 +250,63 @@ def compare_kernels(model, pos, cell, types, swl, timing):
             ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3)
         out[name] = (err, ms, plain_ms)
+    stage_calls = {}
+    if timing:
+        from mtp_tpu_torch.ops import fused_candidates as fc
+
+        gamma = torch.rand((model.schedule.basic_count, pos_s.shape[0]), device=pos_s.device)
+        stage_calls = {
+            "pair_forces_mega": lambda: fm.pair_forces_mega(*args),
+            "site_energies_mega": lambda: fm.site_energies_mega(*args, k["esp"]),
+            "basic_moments_fused": lambda: fb.basic_moments_fused(*args[:6]),
+            "basic_moments_vjp": lambda: fb.basic_moments_vjp(*args[:6], gamma),
+            "candidates_mega": lambda: fc.candidates_mega(*args, k["esp"]),
+            "window_disp": lambda: wd.window_disp(pos_s, swl.idx, cell),
+            "window_giveback": lambda: wg.window_giveback(pair_T, swl.mirror),
+        }
+    return out, float(args[2].sum()), stage_calls
+
+
+_STAGES = {"pair_kernel": ("basic", "tail", "tail + radial rows"),
+           "dag_kernel": ("DAG forward + readout", "DAG forward + reverse",
+                          "DAG forward + readout + reverse")}
+
+
+def stage_ms(calls, reps=10):
+    """{entry point: {stage kernel: device ms per call}}, each entry point's
+    from one torch.profiler window of `reps` calls after a warm-up call."""
+    import re
+
+    import torch
+
+    from mtp_tpu_torch.utils.prof import _device_us, trace
+
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        torch_sync()
+        with trace() as prof:
+            for _ in range(reps):
+                fn()
+            torch_sync()
+        per = {}
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+                continue
+            m = re.search(r"pair_kernel<.*, (\d)>\(", evt.key)
+            d = re.search(r"dag_kernel<(\d)", evt.key)
+            name = (_STAGES["pair_kernel"][int(m.group(1))] if m else
+                    _STAGES["dag_kernel"][int(d.group(1))] if d else evt.key.split("(")[0][-40:])
+            per[name] = per.get(name, 0.0) + us / reps / 1e3
+        out[label] = per
     return out
+
+
+def print_stages(tag, stages):
+    for label, per in stages.items():
+        parts = " + ".join(f"{name} {ms:.4f}" for name, ms in per.items())
+        print(f"[{tag} stages] {label}: {parts} = {sum(per.values()):.4f} ms on the device")
 
 
 def torch_sync():
@@ -251,7 +387,11 @@ def compare_al_kernels(model, pos, cell, types, swl, timing):
         for name, (kern, plain) in calls.items():
             out[name][1] = time_ms(kern, 20)
             out[name][2] = time_ms(plain, 3)
-    return {name: tuple(v) for name, v in out.items()}
+        stages = stage_ms({name: kern for name, (kern, _) in calls.items()})
+        print_stages("7", stages)
+        for name in out:
+            out[name].append(sum(stages[name].values()))
+    return {name: tuple(v) for name, v in out.items()}, float(args[2].sum())
 
 
 def mvs_from(model64, boxes, cell, types, cutoff):
@@ -331,6 +471,7 @@ def al_kernel_phase(m2, p32, ty, c32, swl):
 
 AL_BOX = (20, 20, 20)  # bench_suite.py configuration 4b: 32,000 atoms
 POOL_BOX = (10, 10, 10)  # its MVS pool: three 4,000-atom boxes
+AL_ROUNDS = 3  # timed (AL run, pure-MD run) pairs in phase 7
 
 
 def al_path_phase(dev, card):
@@ -370,24 +511,45 @@ def al_path_phase(dev, card):
     check(not bool(fl), "AL equilibration flags set")
     mon = ExtrapolationMonitor(model)
     n_steps, al_every = 120, 30
-    state = run_with_extrapolation(sim, mon, state, al_every, al_every=al_every,
-                                   ensemble="nve", dt=0.001)  # warm-up
-    kernels = all_kernels()
-    torch_sync()
-    reset_counts()
-    t0 = time.perf_counter()
-    state = run_with_extrapolation(sim, mon, state, n_steps, al_every=al_every,
-                                   ensemble="nve", dt=0.001)
-    torch_sync()
-    dt_al = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    plain = {k.name: k.plain_calls for k in kernels}
-    grades = mon.nbh_grades
     n_evals = n_steps // al_every + 1
-    print(f"[7 AL path] {n} atoms, level 16, fp32, J=64: run_with_extrapolation {n_steps} "
-          f"steps, grades every {al_every} (spb {sim.steps_per_rebuild}, J "
-          f"{sim.max_neighbors} after the run)")
-    print(f"[7 AL path] launches {launches}; plain calls {plain}")
+    # warm-up: each run once as it is timed below
+    state = run_with_extrapolation(sim, mon, state, al_every, al_every=al_every,
+                                   ensemble="nve", dt=0.001)
+    state, _, fl = sim.run_async(state, al_every, dt=0.001)
+    check(not bool(fl), "pure-MD warm-up flags set")
+    kernels = all_kernels()
+    # rounds of (AL run, pure-MD run), each from the state the last one left;
+    # the launch counts are those of the first AL run
+    per_eval = []
+    for rnd in range(AL_ROUNDS):
+        torch_sync()
+        if rnd == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        state = run_with_extrapolation(sim, mon, state, n_steps, al_every=al_every,
+                                       ensemble="nve", dt=0.001)
+        torch_sync()
+        dt_al = time.perf_counter() - t0
+        if rnd == 0:
+            launches = {k.name: k.launches for k in kernels}
+            plain = {k.name: k.plain_calls for k in kernels}
+            grades = mon.nbh_grades
+            print(f"[7 AL path] {n} atoms, level 16, fp32, J=64: run_with_extrapolation "
+                  f"{n_steps} steps, grades every {al_every}")
+            print(f"[7 AL path] launches {launches}; plain calls {plain}")
+        check(bool(state.positions.isfinite().all()), "non-finite positions after AL")
+        t0 = time.perf_counter()
+        state, _, fl, nl = sim.run_async(state, n_steps, dt=0.001, return_nl=True)
+        torch_sync()
+        dt_md = time.perf_counter() - t0
+        check(not bool(fl), "pure-MD run flags set")
+        per_eval.append((dt_al - dt_md) / n_evals * 1e3)
+        print(f"[7 AL path] round {rnd}: max grade {mon.max_grade:.4f}; with AL "
+              f"{n * n_steps / dt_al:.1f} atom-steps/s ({dt_al:.4f} s), pure MD "
+              f"{n * n_steps / dt_md:.1f} atom-steps/s ({dt_md:.4f} s), "
+              f"{per_eval[-1]:.3f} ms per grade eval ({n_evals} evals) on {card}")
+    print(f"[7 AL path] ms per grade eval by round {[round(v, 3) for v in per_eval]}, "
+          f"median {float(np.median(per_eval)):.3f}")
     check(sim.max_neighbors == 64 and sim.steps_per_rebuild == 30,
           "an AL segment tripped its flags and was retried")
     check(launches["candidates_mega"] == n_evals, f"K5 launched {launches['candidates_mega']} "
@@ -399,23 +561,10 @@ def al_path_phase(dev, card):
     check(grades is not None and grades.shape == (n,) and bool(np.isfinite(grades).all()),
           "non-finite or missing grades")
     check(mon.max_grade > 0, "max grade is not positive")
-    check(bool(state.positions.isfinite().all()), "non-finite positions after AL")
-
-    torch_sync()
-    t0 = time.perf_counter()
-    st_md, _, fl, nl = sim.run_async(state, n_steps, dt=0.001, return_nl=True)
-    torch_sync()
-    dt_md = time.perf_counter() - t0
-    check(not bool(fl), "pure-MD run flags set")
-    rate_al, rate_md = n * n_steps / dt_al, n * n_steps / dt_md
-    ms_eval = (dt_al - dt_md) / n_evals * 1e3
-    print(f"[7 AL path] max grade {mon.max_grade:.4f}; with AL {rate_al:.1f} "
-          f"atom-steps/s ({dt_al:.4f} s), pure MD {rate_md:.1f} atom-steps/s "
-          f"({dt_md:.4f} s), {ms_eval:.3f} ms per grade eval ({n_evals} evals) on {card}")
 
     # the modular energy path: K6 forward, K7 backward, through its entry point
     reset_counts()
-    _, k, args = kernel_inputs(model, st_md.positions, st_md.cell, st_md.types, nl)
+    _, k, args = kernel_inputs(model, state.positions, state.cell, state.types, nl)
     d = args[1].clone().requires_grad_(True)
     e = site_energies_fused(model.tables, model.coeffs, d, *args[2:5])
     (pair,) = torch.autograd.grad(e.sum(), d)
@@ -433,17 +582,20 @@ def al_path_phase(dev, card):
           "modular path disagrees with the fused path")
 
     print(f"[7 AL kernels] {n} atoms, J=64, level 16, fp32: kernel vs plain, timed")
-    res = compare_al_kernels(model, st_md.positions, st_md.cell, st_md.types, nl, timing=True)
+    res, live = compare_al_kernels(model, state.positions, state.cell, state.types, nl,
+                                   timing=True)
     counts = {"candidates_mega": launches["candidates_mega"], **{
         name: mod[name] for name in ("basic_moments_fused", "basic_moments_vjp")}}
+    j = nl.idx.shape[1]
     rows = []
     for kern in kernels[4:]:
-        err, ms, plain_ms = res[kern.name]
-        print(f"  {kern.name}: {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-        rows.append(dict(
-            name=kern.name, route="cuda", source=kern.source, replaces=kern.replaces,
-            launches=counts[kern.name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        ))
+        err, ms, plain_ms, dev_ms = res[kern.name]
+        row = kernel_row(kern, counts[kern.name], err, ms, plain_ms, model, n, j, live)
+        row["device_ms"] = dev_ms
+        print(f"  {kern.name}: {ms:.4f} ms by CUDA events around the wrapper, {dev_ms:.4f} ms "
+              f"on the device (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / dev_ms:.1%} of the device time")
+        rows.append(row)
     return rows
 
 
@@ -574,21 +726,40 @@ def main() -> int:
 
     # ---- 5. kernels at the main path's shapes
     print("[5 kernels] main-path shapes (32000 atoms, J=64, level 16), fp32")
-    res = compare_kernels(model, state.positions, state.cell, state.types, nl, timing=True)
-    rows = []
-    for k in kernels:
-        err, ms, plain_ms = res[k.name]
-        print(f"  {k.name}: {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-        rows.append(dict(
-            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[k.name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        ))
+    res, live, stage_calls = compare_kernels(model, state.positions, state.cell, state.types,
+                                             nl, timing=True)
+    j = nl.idx.shape[1]
+    steps = 60 + 210
+    print(f"[5 kernels] {live:.0f} live pairs ({live / n:.2f} per atom); bound = max(bytes / "
+          f"{PEAK_BYTES:.3g} B/s, fp32 operations / {PEAK_FLOPS:.3g} FLOP/s)")
 
     # ---- 6. active-learning kernels, and the fp32 grade step vs float64
     al_kernel_phase(m2, p32, ty, c32, swl)
 
     # ---- 7. the AL path at full width
-    rows += al_path_phase(dev, card)
+    rows7 = al_path_phase(dev, card)
+
+    # ---- 5, continued: device time by stage kernel. Taken after phase 7:
+    # a torch.profiler session slows the host-bound runs that follow it in
+    # the process and widens their spread (`python -m mtp_tpu_torch.utils.prof
+    # --al`), and phase 7 times two such runs against each other.
+    stages = stage_ms(stage_calls)
+    rows = []
+    print_stages("5", stages)
+    from mtp_tpu_torch.ops.fused_moments import resident_warps
+
+    print(f"[5 occupancy] resident warps per SM of the stage kernels (CUDA occupancy "
+          f"calculator): {resident_warps(model.tables)}")
+    for k in kernels:
+        err, ms, plain_ms = res[k.name]
+        row = kernel_row(k, launches[k.name], err, ms, plain_ms, model, n, j, live)
+        row["device_ms"] = dev_ms = sum(stages[k.name].values())
+        print(f"  {k.name}: {ms:.4f} ms by CUDA events around the wrapper, {dev_ms:.4f} ms "
+              f"on the device (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / dev_ms:.1%} of the device time; "
+              f"{launches[k.name] / steps:.4f} launches per main-path step")
+        rows.append(row)
+    rows += rows7
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

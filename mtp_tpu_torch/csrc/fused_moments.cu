@@ -1,6 +1,6 @@
-// The per-atom MTP chain, one kernel template with five modes:
-//   K4 site energies, K2 pair forces (the main path), K5 the fused grade
-//   step of active learning, K6 basic moments and K7 their vjp.
+// The per-atom MTP chain on Hopper: three stage kernels behind five entry
+// points, K4 site energies, K2 pair forces (the main path), K5 the fused
+// grade step of active learning, K6 basic moments and K7 their vjp.
 //
 // Replaces the TPU kernels of mtp_tpu/ops/pallas_moments.py:
 //   K4 :439 `_mega_fwd_kernel` (through `site_energies_mega` :507),
@@ -10,431 +10,937 @@
 //   K6 :196 `_fwd_kernel` (through `_fwd`, `basic_moments_fused` :271),
 //   K7 :219 `_bwd_kernel` (K6's vjp, through `_fused_bwd` :330).
 // The per-pair math follows `_geometry` :110, `_cheb_vals(_ders)` :50-72,
-// `_pair_radials` :75, the power tables :101 and `_pair_force_terms` :152.
+// `_pair_radials` :75, `_u_tables` :122 and `_pair_force_terms` :152.
 //
-// Design. One warp per atom (kWarps atoms per block); lane l handles the
-// neighbor slots s = l, l+32, ... The per-slot values (mask, unit vector,
-// 1/d, f_mu, f'_mu, unit-vector power tables) go to the warp's slice of
-// shared memory as [item][slot] rows, so every later loop over the basic
-// index k (uniform across the warp) reads consecutive slots: no bank
-// conflicts. Basic moments are reduced across slots with warp shuffles.
-// The TPU ran the product DAG as one-hot MXU matmuls (`_dag_tile` :400);
-// here it runs as the sparse product list m[a3] += mult*m[a0]*m[a1] on a
-// per-atom moment vector in shared memory (331 floats at level 16), wave by
-// wave. Duplicate a3 targets accumulate WITHOUT atomics: the host groups a
-// wave's products by target (one lane per target walks its segment), and
-// groups the reverse pass by input node (dm[n] += mult*dm[a3]*m[other] over
-// the node's segment), so every sum runs in a fixed order and the kernel is
-// deterministic. The schedule lives in a device int32 table read at run
-// time, so one binary serves every MTP level.
+// Stages (each entry point runs the ones it needs, in this order):
+//   basic   pair_kernel<Sh, kStageBasic>: per-pair stage and basic moments
+//           m_k = sum_s w f_mu U_k -> (B, N). K6 alone; K4, K2, K5 into a
+//           (B, N) scratch buffer.
+//   dag     dag_kernel<MODE>: the product DAG forward; K4 the readout
+//           esp + xi.m; K2 the reverse DAG from dm = de*xi, gamma = dm[:B]
+//           written over the scratch; K5 both, with de = 1, plus the scalar
+//           basis members m[mapping].
+//   tail    pair_kernel<Sh, kStageTail(Cand)>: per-pair stage with
+//           derivatives and the force tail from gamma (B, N) -> (3, J, N).
+//           K7 alone (gamma from the caller), K2 and K5 after the dag; K5
+//           also gathers Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s) and
+//           the radial-Jacobian rows rad[s2, mu, r] = sum_s [jt(s) = s2]
+//           w(s) cheb_r(s) Gmu[mu](s).
+// The (B, N) intermediates (16.6 MB at 32k atoms, level 16) stay in the
+// 50 MB L2 between stages: the per-atom DAG state (m and dm, 2.6 KB at
+// level 16) and the per-thread pair state want different thread layouts,
+// and one kernel holding both would be bound by the larger footprint.
 //
-// The modes share every stage; each runs the stages it needs:
-//   K6: per-slot stage, basic moments -> m[:B] as (B, N).
-//   K4: ... forward DAG, readout esp + xi.m.
-//   K2: ... reverse DAG from dm = de*xi, force tail -> (3, J, N).
-//   K5: K2 with de = 1, plus: the readout (site energies) and the scalar
-//       basis members m[mapping] before the reverse pass; the enveloped
-//       Chebyshev values cheb_r(s) kept per slot; Gmu[mu](s) =
-//       sum_{k: mu_k = mu} gamma_k U_k(s) accumulated in the force tail's k
-//       loop (a [MU][slot] shared row per warp: each lane owns its slots);
-//       and the radial-Jacobian rows rad[s2, mu, r] = sum_s [jt(s) = s2]
-//       w(s) cheb_r(s) Gmu[mu](s), S*MU*RB warp reductions per atom.
-//   K7: per-slot stage, gamma (B, N) read from memory, force tail.
+// Bound on an H100 SXM: fp32 operations outside the tensor cores (67
+// TFLOP/s). K2 at level 16 needs ~1,930 fp32 operations per live pair (mask
+// > 0) and ~5,300 per atom in the DAG, each quantity counted once
+// (chip_smoke.py `kernel_work`); at 32k atoms and ~34 live pairs per atom
+// that is ~2.3 GFLOP, 0.034 ms, against 0.020 ms for its 66 MB of (3, J, N)
+// input and output at 3.35 TB/s. The kernels do more: the tail stage
+// rebuilds the basic stage's geometry, radial functions and monomials
+// rather than pass them through memory. No tensor cores and no TF32 anywhere:
+// every product and sum is an IEEE fp32 operation.
 //
-// Bound: issue rate on the FP32 pipes and shared-memory traffic. At level 16
-// each pair costs ~B=130 products in the forward moments and ~4B terms in
-// the force tail, each atom ~620 DAG products forward and ~1240 reverse; the
-// (3, J, N) inputs and outputs are ~1 KB per atom, far below the bandwidth
-// roof. K5 adds one shared read-modify-write per (slot, k) for Gmu and 32
-// warp reductions per atom (level 16, one species). No tensor cores and no
-// TF32 anywhere: every dot is IEEE fp32 FMA.
+// How the design meets the costs of the one-warp-per-atom kernel it
+// replaces (130 serial warp reductions per atom, int table loads and
+// shared loads per term, 32-sector strided I/O, 20 resident warps per SM,
+// full work on padded slots):
+// - One thread per atom in the pair stages, atoms along a warp's lanes.
+//   Every (3, J, N), (J, N) and (B, N) access of a warp at one slot is one
+//   128-byte line, and the basic moments of the thread's atom are summed in
+//   registers over its own slots: no cross-thread reduction at all.
+// - Specialised shapes (MTP_SHAPES: the basic set is every monomial of rank
+//   <= R_mu for each radial function mu) are template parameters. Each
+//   distinct monomial u^(ax, ay, az), and each derivative monomial, is built
+//   once per pair from the unit-vector powers in registers; the (mu,
+//   monomial) terms are unrolled at compile time, so the inner loops read no
+//   table. One host table (the shell map, read once per thread) puts the
+//   canonical term c = off(mu) + t at its schedule row k. Every other
+//   schedule runs the General instantiation: the same stages with the term
+//   table (B, 4) staged in shared memory and per-thread values in
+//   thread-private shared columns.
+// - The force tail is regrouped by monomial: G_t = sum_mu g f_mu, G'_t =
+//   sum_mu g f'_mu, then T = w (u (P - Q/d) + D/d) with P = sum_t G'_t U_t,
+//   Q = sum_t rank_t G_t U_t and D_a = sum_t G_t alpha_a U_(t - e_a).
+// - Padded and out-of-cutoff slots cost one coalesced mask load: a 64-bit
+//   live mask per chunk of 64 slots, and the thread walks only its live
+//   slots (the next slot's operands are loaded before the current one is
+//   contracted). The tail writes zeros at the dead slots.
+// - The DAG runs with one atom per lane and the warps of a block splitting
+//   each wave's targets (the host orders them longest segment first), m and
+//   dm as [node][atom] rows in shared memory: every table entry is read at
+//   one warp-uniform address, from a copy of the DAG sections in shared
+//   memory when it fits beside m and dm (otherwise, from level 18 up,
+//   through `__ldg`), every
+//   m and dm access is conflict-free, and the (B, N) rows load and store as
+//   whole lines.
+// - Occupancy: the specialised pair stages take 254 registers, 8 warps per
+//   SM, which holds every warp of a 32k-atom launch (1,000, ~7.6 per SM) in
+//   one wave; more resident warps would need the moment sums out of
+//   registers. Each thread has ~130 independent accumulations per slot to
+//   issue while its next slot's loads are in flight. The DAG keeps m and dm
+//   of 32 atoms (85 KB at level 16) and its table (19 KB) per 16-warp
+//   block: 2 blocks, 32 warps per SM (chip_smoke.py prints both from the
+//   occupancy calculator).
+// - Determinism: every sum runs in a fixed order (slots ascending within a
+//   thread; a DAG target's products in table order), no atomics.
 //
-// Masked slots get d2 = 1 before sqrtf: pads and self pairs have disp = 0,
-// and 0*inf would poison the sums with NaN. Their weight w is 0.
+// Masked slots are never contracted (their d2 would need the d2 = 1 guard
+// of the plain path: pads have disp = 0).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
-constexpr int kWarps = 4;  // atoms per block, one warp each
-
 // int32 table header: offsets of each section within the table
 enum {
-  kBasic = 0,     // (B, 4): mu, ax, ay, az
-  kFwdWave = 1,   // (n_waves + 1): target-list range of each wave
-  kFwdTarget = 2, // (T): target node of each segment
-  kFwdSeg = 3,    // (T + 1): product range of each target
-  kFwdProd = 4,   // (P, 3): a0, a1, mult
-  kRevWave = 5,   // (n_waves + 1): node-list range of each wave
-  kRevNode = 6,   // (Q): node receiving each reverse segment
-  kRevSeg = 7,    // (Q + 1): entry range of each node
-  kRevEnt = 8,    // (E, 3): a3, other input, mult
+  kBasic = 0,      // (B, 4): mu, ax, ay, az
+  kShellMap = 1,   // (B,): schedule row k of canonical term c (specialised shapes)
+  kFwdWave = 2,    // (n_waves + 1): target-list range of each wave
+  kFwdTarget = 3,  // (T): target node of each segment
+  kFwdSeg = 4,     // (T + 1): product range of each target
+  kFwdProd = 5,    // (P, 2): a0 | a1 << 16, mult (8-byte aligned)
+  kRevWave = 6,    // (n_waves + 1): node-list range of each wave
+  kRevNode = 7,    // (Q): node receiving each reverse segment
+  kRevSeg = 8,     // (Q + 1): entry range of each node
+  kRevEnt = 9,     // (E, 2): a3 | other << 16, mult (8-byte aligned)
 };
 
-// kernel modes (template argument)
-constexpr int kSite = 0;         // K4
-constexpr int kForces = 1;       // K2
-constexpr int kCand = 2;         // K5
-constexpr int kBasicOnly = 3;    // K6
-constexpr int kGammaForces = 4;  // K7
+// Specialised shapes: id, then the top rank R_mu of each radial function's
+// basic moments. mtp_tpu_torch/ops/fused_moments.py SHAPES lists the same.
+#define MTP_SHAPES(X) \
+  X(1, 2, 0)          \
+  X(2, 6, 4, 2, 0)
 
-struct Params {
-  const float* dispT;     // (3, J, N)
-  const float* mask;      // (J, N)
-  const int* itypes;      // (N,)
-  const int* jtypes_t;    // (J, N)
-  const float* radial;    // (S, S, MU, RB)
-  const float* xi;        // (M,) readout vector (K4, K2, K5)
-  const float* per_atom;  // esp (N,) for K4/K5, de (N,) or NULL for K2, gamma (B, N) for K7
-  const int* tab;         // the schedule table
-  const int* mapping;     // (n_scal,) moment slot of each scalar basis member (K5)
-  float* out;             // K4 (N,); K2, K5, K7 (3, J, N); K6 (B, N)
-  float* site;            // K5 (N,)
-  float* bm;              // K5 (N, n_scal)
-  float* rad;             // K5 (N, S*MU*RB), (s2, mu, r) row-major
-  int n, j, S, MU, RB, R, B, M, n_waves, n_scal;
-  float lo, hi, scaling;
+// dag_kernel modes
+constexpr int kSite = 0;    // K4
+constexpr int kForces = 1;  // K2
+constexpr int kCand = 2;    // K5
+
+// pair_kernel stages
+constexpr int kStageBasic = 0;     // basic moments (B, N)
+constexpr int kStageTail = 1;      // force tail from gamma (B, N)
+constexpr int kStageTailCand = 2;  // force tail, Gmu and the radial rows (K5)
+
+constexpr int kPairThreads = 64;  // specialised pair stages; General uses 32
+constexpr int kDagThreads = 512;  // 16 warps, one atom per lane
+constexpr int kDagWarps = kDagThreads / 32;
+
+// floats of a DAG block's m [M][W] and dm [max(M, kDagWarps)][W] (K4's and
+// K5's readout keeps its per-warp partial sums [kDagWarps][W] in dm's rows),
+// rounded up to even so that the staged table behind them is 8-byte aligned
+__host__ __device__ inline long long dag_floats(int M, int W) {
+  const long long f = (long long)(M + (M > kDagWarps ? M : kDagWarps)) * W;
+  return f + (f & 1);
+}
+
+// ---- monomials u^(ax, ay, az) of rank <= r: rank-major, then ax and ay
+// descending (mtp_tpu_torch/ops/fused_moments.py `monomials`)
+__host__ __device__ constexpr int n_mono(int r) {
+  return r < 0 ? 0 : (r + 1) * (r + 2) * (r + 3) / 6;
+}
+__host__ __device__ constexpr int mono_rank(int t) {
+  int r = 0;
+  while (n_mono(r) <= t) ++r;
+  return r;
+}
+__host__ __device__ constexpr int mono_ax(int t) {
+  const int r = mono_rank(t);
+  int q = t - n_mono(r - 1), ax = r;
+  while (q > r - ax) {
+    q -= r - ax + 1;
+    --ax;
+  }
+  return ax;
+}
+__host__ __device__ constexpr int mono_ay(int t) {
+  const int r = mono_rank(t);
+  int q = t - n_mono(r - 1), ax = r;
+  while (q > r - ax) {
+    q -= r - ax + 1;
+    --ax;
+  }
+  return r - ax - q;
+}
+
+// A specialised shape: radial function mu carries every monomial of rank
+// <= R_mu; canonical term c = off(mu) + t.
+template <int... Rs>
+__host__ __device__ constexpr int shell_rank(int mu) {
+  const int a[] = {Rs...};
+  return a[mu];
+}
+template <int... Rs>
+__host__ __device__ constexpr int shell_off(int mu) {
+  const int a[] = {Rs...};
+  int o = 0;
+  for (int q = 0; q < mu; ++q) o += n_mono(a[q]);
+  return o;
+}
+template <int... Rs>
+__host__ __device__ constexpr int shell_rmax() {
+  const int a[] = {Rs...};
+  int m = 0;
+  for (int q = 0; q < (int)sizeof...(Rs); ++q) m = a[q] > m ? a[q] : m;
+  return m;
+}
+template <int... Rs>
+struct Shells {
+  static constexpr bool kSpecial = true;
+  static constexpr int MU = sizeof...(Rs);
+  __host__ __device__ static constexpr int r(int mu) { return shell_rank<Rs...>(mu); }
+  __host__ __device__ static constexpr int off(int mu) { return shell_off<Rs...>(mu); }
+  static constexpr int B = shell_off<Rs...>(sizeof...(Rs));
+  static constexpr int RMAX = shell_rmax<Rs...>();
+  static constexpr int NT = n_mono(RMAX);
 };
 
-// floats of shared memory per warp; the kernel carves its slice in this order
-__host__ __device__ inline int per_warp_floats(int mode, int jp, int MU, int RB, int R,
-                                               int M) {
-  int f = jp * (5 + 2 * MU + 3 * (R + 1)) + 2 * M;
-  if (mode == kCand) f += jp * (RB + MU + 1);
-  return f;
+// Every other schedule: sizes and terms at run time.
+struct General {
+  static constexpr bool kSpecial = false;
+};
+
+template <class F, int... I>
+__device__ __forceinline__ void static_for_(F& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, unrolled at compile time
+template <int N, class F>
+__device__ __forceinline__ void static_for(F f) {
+  static_for_(f, std::make_integer_sequence<int, N>{});
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// ---- one pair's operands, and the live slots of one atom
+
+struct Pair {
+  float x, y, z, w;
+  int jt;
+};
+
+__device__ __forceinline__ Pair load_pair(const float* __restrict__ dispT,
+                                          const float* __restrict__ mask,
+                                          const int* __restrict__ jtypes_t, long long jn,
+                                          long long o) {
+  Pair p;
+  p.x = __ldg(dispT + o);
+  p.y = __ldg(dispT + jn + o);
+  p.z = __ldg(dispT + 2 * jn + o);
+  p.w = __ldg(mask + o);
+  p.jt = __ldg(jtypes_t + o);
+  return p;
 }
 
-// The pointers are separate __restrict__ parameters (not a struct) so the
-// compiler may keep the read-only operands in the non-coherent cache path.
-template <int MODE>
-__global__ void __launch_bounds__(kWarps * 32)
-mega_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
-            const int* __restrict__ itypes, const int* __restrict__ jtypes_t,
-            const float* __restrict__ radial, const float* __restrict__ xi,
-            const float* __restrict__ per_atom, const int* __restrict__ tab,
-            const int* __restrict__ mapping, float* __restrict__ out,
-            float* __restrict__ site, float* __restrict__ bm, float* __restrict__ rad,
-            int n, int j, int S, int MU, int RB, int R, int B, int M, int n_waves,
-            int n_scal, float lo, float hi, float scaling) {
-  constexpr bool kDeriv = MODE == kForces || MODE == kCand || MODE == kGammaForces;
-  constexpr bool kDag = MODE == kSite || MODE == kForces || MODE == kCand;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + warp;
-  if (i >= n) return;  // whole warp; only __syncwarp below
-
-  const int jp = (j + 31) & ~31;
-  float* sw = smem + warp * per_warp_floats(MODE, jp, MU, RB, R, M);
-  float* sux = sw + jp;
-  float* suy = sux + jp;
-  float* suz = suy + jp;
-  float* sinv = suz + jp;
-  float* sf = sinv + jp;        // [MU][jp]
-  float* sfp = sf + MU * jp;    // [MU][jp]
-  float* spx = sfp + MU * jp;   // [R+1][jp]
-  float* spy = spx + (R + 1) * jp;
-  float* spz = spy + (R + 1) * jp;
-  float* m = spz + (R + 1) * jp;  // [M]
-  float* dm = m + M;              // [M]
-  float* scheb = dm + M;          // K5: [RB][jp] enveloped Chebyshev values
-  float* sgmu = scheb + RB * jp;  // K5: [MU][jp] Gmu
-  int* sjt = reinterpret_cast<int*>(sgmu + MU * jp);  // K5: [jp] neighbor types
-
+// Calls body(pair, o) for every slot of atom i with mask > 0, slots
+// ascending (o = s * n + i), and dead(o) for every other slot. The next live
+// slot's operands are loaded before body runs on the current one.
+template <class Dead, class Body>
+__device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
+                                               const float* __restrict__ mask,
+                                               const int* __restrict__ jtypes_t, int n, int j,
+                                               int i, Dead dead, Body body) {
   const long long jn = (long long)j * n;
-  const int it = itypes[i];
+  int base = -64;
+  uint64_t bits = 0;
+  auto next = [&]() -> long long {
+    while (bits == 0) {
+      base += 64;
+      if (base >= j) return -1;
+      const int cnt = min(64, j - base);
+#pragma unroll 16
+      for (int q = 0; q < cnt; ++q) {
+        const long long o = (long long)(base + q) * n + i;
+        if (__ldg(mask + o) > 0.f)
+          bits |= 1ull << q;
+        else
+          dead(o);
+      }
+    }
+    const int q = __ffsll((long long)bits) - 1;
+    bits &= bits - 1;
+    return (long long)(base + q) * n + i;
+  };
+  long long o = next();
+  Pair cur = {};
+  if (o >= 0) cur = load_pair(dispT, mask, jtypes_t, jn, o);
+  while (o >= 0) {
+    const long long o2 = next();
+    Pair nxt = {};
+    if (o2 >= 0) nxt = load_pair(dispT, mask, jtypes_t, jn, o2);
+    body(cur, o);
+    cur = nxt;
+    o = o2;
+  }
+}
+
+struct Geo {
+  float ux, uy, uz, inv_d, ksi, dh, env;
+};
+
+__device__ __forceinline__ Geo geometry(const Pair& p, float lo, float hi, float scaling) {
+  Geo g;
+  const float d2 = p.x * p.x + p.y * p.y + p.z * p.z;
+  const float d = sqrtf(d2);
+  g.inv_d = 1.f / d;
+  g.ux = p.x * g.inv_d;
+  g.uy = p.y * g.inv_d;
+  g.uz = p.z * g.inv_d;
+  g.ksi = (2.f * d - (lo + hi)) / (hi - lo);
+  g.dh = d - hi;
+  g.env = scaling * (g.dh * g.dh);
+  return g;
+}
+
+// f_mu (and f'_mu) of one pair from its coefficient row crow (MU, RB): the
+// Chebyshev recursion once, all MU radial functions per step
+template <int MU, bool kDeriv>
+__device__ __forceinline__ void radial_funcs(const float* crow, int RB, const Geo& g, float hi,
+                                             float lo, float scaling, float (&f)[MU],
+                                             float (&fp)[MU]) {
   const float mult_c = 2.f / (hi - lo);
-
-  // ---- per-slot stage: geometry, radial functions, power tables
-  for (int s = lane; s < jp; s += 32) {
-    float x = 0.f, y = 0.f, z = 0.f, w = 0.f;
-    int jt = 0;
-    if (s < j) {
-      const long long q = (long long)s * n + i;
-      x = dispT[q];
-      y = dispT[jn + q];
-      z = dispT[2 * jn + q];
-      w = mask[q];
-      jt = jtypes_t[q];
-    }
-    float d2 = x * x + y * y + z * z;
-    if (!(w > 0.f)) d2 = 1.f;
-    const float d = sqrtf(d2);
-    const float inv_d = 1.f / d;
-    const float ux = x * inv_d, uy = y * inv_d, uz = z * inv_d;
-    sw[s] = w;
-    sux[s] = ux;
-    suy[s] = uy;
-    suz[s] = uz;
-    sinv[s] = inv_d;
-
-    const float ksi = (2.f * d - (lo + hi)) / (hi - lo);
-    const float dh = d - hi;
-    const float env = scaling * (dh * dh);
-    if constexpr (MODE == kCand) {
-      sjt[s] = jt;
-      float v0 = env, v1 = ksi * env;
-      scheb[s] = v0;
-      scheb[jp + s] = v1;
-      for (int r = 2; r < RB; ++r) {
-        const float v2 = 2.f * ksi * v1 - v0;
-        scheb[r * jp + s] = v2;
-        v0 = v1;
-        v1 = v2;
-      }
-    }
-    const float* crow = radial + (long long)(it * S + jt) * MU * RB;
+  float v0 = g.env, v1 = g.ksi * g.env;
+  float g0 = 0.f, g1 = 0.f;
+  if constexpr (kDeriv) {
+    g0 = scaling * 2.f * g.dh;
+    g1 = scaling * (mult_c * (g.dh * g.dh) + 2.f * g.ksi * g.dh);
+  }
+#pragma unroll
+  for (int mu = 0; mu < MU; ++mu) {
+    f[mu] = crow[mu * RB] * v0 + crow[mu * RB + 1] * v1;
+    if constexpr (kDeriv) fp[mu] = crow[mu * RB] * g0 + crow[mu * RB + 1] * g1;
+  }
+  for (int r = 2; r < RB; ++r) {
+    const float v2 = 2.f * g.ksi * v1 - v0;
+    float g2 = 0.f;
+    if constexpr (kDeriv) g2 = 2.f * (mult_c * v1 + g.ksi * g1) - g0;
+#pragma unroll
     for (int mu = 0; mu < MU; ++mu) {
-      const float* cm = crow + mu * RB;
-      float v0 = env, v1 = ksi * env;
-      float f = cm[0] * v0 + cm[1] * v1;
-      float g0 = 0.f, g1 = 0.f, fp = 0.f;
-      if constexpr (kDeriv) {
-        g0 = scaling * 2.f * dh;
-        g1 = scaling * (mult_c * (dh * dh) + 2.f * ksi * dh);
-        fp = cm[0] * g0 + cm[1] * g1;
-      }
-      for (int r = 2; r < RB; ++r) {
-        const float v2 = 2.f * ksi * v1 - v0;
-        f += cm[r] * v2;
-        if constexpr (kDeriv) {
-          const float g2 = 2.f * (mult_c * v1 + ksi * g1) - g0;
-          fp += cm[r] * g2;
-          g0 = g1;
-          g1 = g2;
-        }
-        v0 = v1;
-        v1 = v2;
-      }
-      sf[mu * jp + s] = f;
-      if constexpr (kDeriv) sfp[mu * jp + s] = fp;
+      f[mu] += crow[mu * RB + r] * v2;
+      if constexpr (kDeriv) fp[mu] += crow[mu * RB + r] * g2;
     }
-    float px = 1.f, py = 1.f, pz = 1.f;
-    for (int r = 0; r <= R; ++r) {
-      spx[r * jp + s] = px;
-      spy[r * jp + s] = py;
-      spz[r * jp + s] = pz;
-      px *= ux;
-      py *= uy;
-      pz *= uz;
-    }
+    v0 = v1;
+    v1 = v2;
+    g0 = g1;
+    g1 = g2;
   }
-  __syncwarp();
+}
 
-  const int* basic = tab + tab[kBasic];
-  if constexpr (MODE != kGammaForces) {
-    // ---- basic moments m_k = sum_s w f_mu U_k, reduced across the warp
-    for (int k = 0; k < B; ++k) {
-      const int mu = basic[4 * k], ax = basic[4 * k + 1];
-      const int ay = basic[4 * k + 2], az = basic[4 * k + 3];
-      float acc = 0.f;
-      for (int s = lane; s < jp; s += 32)
-        acc += (sf[mu * jp + s] * sw[s]) *
-               (spx[ax * jp + s] * (spy[ay * jp + s] * spz[az * jp + s]));
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        m[k] = acc;
-        if constexpr (MODE == kBasicOnly) out[(long long)k * n + i] = acc;
-      }
+// the same for a run-time MU, into thread-private shared columns (stride bd)
+__device__ __forceinline__ void radial_funcs_rt(const float* crow, int MU, int RB, const Geo& g,
+                                                float hi, float lo, float scaling, bool deriv,
+                                                float* sf, float* sfp, int bd) {
+  const float mult_c = 2.f / (hi - lo);
+  for (int mu = 0; mu < MU; ++mu) {
+    const float* cm = crow + mu * RB;
+    float v0 = g.env, v1 = g.ksi * g.env;
+    float f = cm[0] * v0 + cm[1] * v1;
+    float g0 = 0.f, g1 = 0.f, fp = 0.f;
+    if (deriv) {
+      g0 = scaling * 2.f * g.dh;
+      g1 = scaling * (mult_c * (g.dh * g.dh) + 2.f * g.ksi * g.dh);
+      fp = cm[0] * g0 + cm[1] * g1;
     }
-    if constexpr (MODE == kBasicOnly) return;
-    for (int k = B + lane; k < M; k += 32) m[k] = 0.f;
-    __syncwarp();
+    for (int r = 2; r < RB; ++r) {
+      const float v2 = 2.f * g.ksi * v1 - v0;
+      f += cm[r] * v2;
+      if (deriv) {
+        const float g2 = 2.f * (mult_c * v1 + g.ksi * g1) - g0;
+        fp += cm[r] * g2;
+        g0 = g1;
+        g1 = g2;
+      }
+      v0 = v1;
+      v1 = v2;
+    }
+    sf[mu * bd] = f;
+    if (deriv) sfp[mu * bd] = fp;
   }
+}
 
-  if constexpr (kDag) {
-    // ---- forward DAG, wave by wave: one lane per target segment
-    const int* fwave = tab + tab[kFwdWave];
-    const int* ftgt = tab + tab[kFwdTarget];
-    const int* fseg = tab + tab[kFwdSeg];
-    const int* fprod = tab + tab[kFwdProd];
-    for (int wv = 0; wv < n_waves; ++wv) {
-      for (int t = fwave[wv] + lane; t < fwave[wv + 1]; t += 32) {
-        float acc = 0.f;
-        for (int q = fseg[t]; q < fseg[t + 1]; ++q) {
-          const int* e = fprod + 3 * q;
-          acc += m[e[0]] * m[e[1]] * (float)e[2];
-        }
-        m[ftgt[t]] += acc;
-      }
-      __syncwarp();
+// K5: rad[s2 = jt, mu, r] += (w cheb_r) Gmu[mu] for one pair, into
+// thread-private shared columns; gmu(mu) gives Gmu
+template <class Gmu>
+__device__ __forceinline__ void rad_rows(float* srad, int bd, int jt, int MU, int RB,
+                                         const Geo& g, float w, Gmu gmu) {
+  float* row = srad + (long long)jt * MU * RB * bd;
+  float v0 = g.env, v1 = g.ksi * g.env;
+  for (int r = 0; r < RB; ++r) {
+    float c = v0;
+    if (r == 1) c = v1;
+    if (r >= 2) {
+      c = 2.f * g.ksi * v1 - v0;
+      v0 = v1;
+      v1 = c;
     }
+    const float wc = w * c;
+    for (int mu = 0; mu < MU; ++mu) row[(mu * RB + r) * bd] += wc * gmu(mu);
+  }
+}
+
+// acc[off(mu) + T] += fw[mu] * U for every mu whose shell holds monomial T
+template <class Sh, int T, int MU_ = 0>
+__device__ __forceinline__ void basic_terms(float (&acc)[Sh::B], const float (&fw)[Sh::MU],
+                                            float U) {
+  if constexpr (MU_ < Sh::MU) {
+    if constexpr (mono_rank(T) <= Sh::r(MU_)) acc[Sh::off(MU_) + T] += fw[MU_] * U;
+    basic_terms<Sh, T, MU_ + 1>(acc, fw, U);
+  }
+}
+
+// G_t = sum_mu g f_mu, G'_t = sum_mu g f'_mu over the shells holding
+// monomial T; K5 also Gmu[mu] += g U
+template <class Sh, bool kGmu, int T, int MU_ = 0>
+__device__ __forceinline__ void tail_terms(const float (&g)[Sh::B], const float (&f)[Sh::MU],
+                                           const float (&fp)[Sh::MU], float U, float& G,
+                                           float& Gp, float (&gmu)[Sh::MU]) {
+  if constexpr (MU_ < Sh::MU) {
+    if constexpr (mono_rank(T) <= Sh::r(MU_)) {
+      const float gk = g[Sh::off(MU_) + T];
+      G += gk * f[MU_];
+      Gp += gk * fp[MU_];
+      if constexpr (kGmu) gmu[MU_] += gk * U;
+    }
+    tail_terms<Sh, kGmu, T, MU_ + 1>(g, f, fp, U, G, Gp, gmu);
+  }
+}
+
+// floats of dynamic shared memory of one pair_kernel block: the radial
+// coefficients, the General term table, then thread-private columns
+template <class Sh, int STAGE>
+__host__ __device__ inline int pair_cols(int S, int MU, int RB, int R, int B) {
+  int c = 0;
+  if constexpr (!Sh::kSpecial) {
+    c = 3 * (R + 1) + B + MU;              // powers, accumulators or gamma, f
+    if (STAGE != kStageBasic) c += MU;     // f'
+    if (STAGE == kStageTailCand) c += MU;  // Gmu
+  }
+  if (STAGE == kStageTailCand) c += S * MU * RB;  // radial rows
+  return c;
+}
+
+// The pair stages, one thread per atom (module comment).
+template <class Sh, int STAGE>
+__global__ void __launch_bounds__(kPairThreads)
+pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
+            const int* __restrict__ itypes, const int* __restrict__ jtypes_t,
+            const float* __restrict__ radial, const int* __restrict__ tab,
+            const float* __restrict__ gamma, float* __restrict__ out, float* __restrict__ rad,
+            int n, int j, int S, int MU, int RB, int R, int B, float lo, float hi,
+            float scaling) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int ncoef = S * S * MU * RB;
+  for (int q = tid; q < ncoef; q += bd) smem[q] = radial[q];
+  int* sbasic = reinterpret_cast<int*>(smem + ncoef);
+  const int nb = Sh::kSpecial ? 0 : 4 * B;
+  for (int q = tid; q < nb; q += bd) sbasic[q] = tab[tab[kBasic] + q];
+  __syncthreads();
+  const int i = blockIdx.x * bd + tid;
+  if (i >= n) return;  // no barrier below
+
+  float* col = smem + ncoef + nb + tid;  // this thread's columns, stride bd
+  const long long jn = (long long)j * n;
+  const float* crow0 = smem + (long long)itypes[i] * S * MU * RB;
+  float* srad = col;  // K5: S * MU * RB columns first
+  if constexpr (STAGE == kStageTailCand) {
+    for (int q = 0; q < S * MU * RB; ++q) srad[q * bd] = 0.f;
+    col += S * MU * RB * bd;
+  }
+  auto dead = [&](long long o) {
+    if constexpr (STAGE != kStageBasic) {
+      out[o] = 0.f;
+      out[jn + o] = 0.f;
+      out[2 * jn + o] = 0.f;
+    }
+  };
+
+  if constexpr (Sh::kSpecial) {
+    const int* kmap = tab + tab[kShellMap];
+    float acc[Sh::B];  // basic moments (kStageBasic) or gamma (tail)
+#pragma unroll
+    for (int c = 0; c < Sh::B; ++c)
+      acc[c] = STAGE != kStageBasic ? __ldg(gamma + (long long)__ldg(kmap + c) * n + i) : 0.f;
+    for_live_slots(dispT, mask, jtypes_t, n, j, i, dead, [&](const Pair& p, long long o) {
+      const Geo g = geometry(p, lo, hi, scaling);
+      const float* crow = crow0 + p.jt * Sh::MU * RB;
+      float f[Sh::MU], fp[Sh::MU];
+      radial_funcs<Sh::MU, STAGE != kStageBasic>(crow, RB, g, hi, lo, scaling, f, fp);
+      float px[Sh::RMAX + 1], py[Sh::RMAX + 1], pz[Sh::RMAX + 1];
+      px[0] = py[0] = pz[0] = 1.f;
+#pragma unroll
+      for (int r = 1; r <= Sh::RMAX; ++r) {
+        px[r] = px[r - 1] * g.ux;
+        py[r] = py[r - 1] * g.uy;
+        pz[r] = pz[r - 1] * g.uz;
+      }
+      if constexpr (STAGE == kStageBasic) {
+        float fw[Sh::MU];
+#pragma unroll
+        for (int mu = 0; mu < Sh::MU; ++mu) fw[mu] = f[mu] * p.w;
+        static_for<Sh::NT>([&](auto T) {
+          constexpr int t = decltype(T)::value;
+          constexpr int ax = mono_ax(t), ay = mono_ay(t), az = mono_rank(t) - ax - ay;
+          basic_terms<Sh, t>(acc, fw, px[ax] * (py[ay] * pz[az]));
+        });
+      } else {
+        float P = 0.f, Q = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
+        float gmu[Sh::MU];
+#pragma unroll
+        for (int mu = 0; mu < Sh::MU; ++mu) gmu[mu] = 0.f;
+        static_for<Sh::NT>([&](auto T) {
+          constexpr int t = decltype(T)::value;
+          constexpr int rank = mono_rank(t);
+          constexpr int ax = mono_ax(t), ay = mono_ay(t), az = rank - ax - ay;
+          const float yz = py[ay] * pz[az];
+          const float U = px[ax] * yz;
+          float G = 0.f, Gp = 0.f;
+          tail_terms<Sh, STAGE == kStageTailCand, t>(acc, f, fp, U, G, Gp, gmu);
+          P += Gp * U;
+          if constexpr (rank > 0) Q += (float)rank * (G * U);
+          if constexpr (ax > 0) Dx += G * ((float)ax * (px[ax - 1] * yz));
+          if constexpr (ay > 0) Dy += G * ((float)ay * (px[ax] * (py[ay - 1] * pz[az])));
+          if constexpr (az > 0) Dz += G * ((float)az * (px[ax] * (py[ay] * pz[az - 1])));
+        });
+        const float Pr = P - Q * g.inv_d;
+        out[o] = (Pr * g.ux + Dx * g.inv_d) * p.w;
+        out[jn + o] = (Pr * g.uy + Dy * g.inv_d) * p.w;
+        out[2 * jn + o] = (Pr * g.uz + Dz * g.inv_d) * p.w;
+        if constexpr (STAGE == kStageTailCand)
+          rad_rows(srad, bd, p.jt, Sh::MU, RB, g, p.w, [&](int mu) { return gmu[mu]; });
+      }
+    });
+    if constexpr (STAGE == kStageBasic) {
+#pragma unroll
+      for (int c = 0; c < Sh::B; ++c) out[(long long)__ldg(kmap + c) * n + i] = acc[c];
+    }
+  } else {
+    // General: per-thread values in shared columns, terms from sbasic
+    float* spx = col;
+    float* spy = spx + (R + 1) * bd;
+    float* spz = spy + (R + 1) * bd;
+    float* sacc = spz + (R + 1) * bd;  // basic moments, or gamma (tail)
+    float* sf = sacc + B * bd;
+    float* sfp = sf + MU * bd;
+    float* sgmu = sfp + MU * bd;
+    for (int k = 0; k < B; ++k)
+      sacc[k * bd] = STAGE != kStageBasic ? __ldg(gamma + (long long)k * n + i) : 0.f;
+    for_live_slots(dispT, mask, jtypes_t, n, j, i, dead, [&](const Pair& p, long long o) {
+      const Geo g = geometry(p, lo, hi, scaling);
+      radial_funcs_rt(crow0 + p.jt * MU * RB, MU, RB, g, hi, lo, scaling, STAGE != kStageBasic,
+                      sf, sfp, bd);
+      float x = 1.f, y = 1.f, z = 1.f;
+      for (int r = 0; r <= R; ++r) {
+        spx[r * bd] = x;
+        spy[r * bd] = y;
+        spz[r * bd] = z;
+        x *= g.ux;
+        y *= g.uy;
+        z *= g.uz;
+      }
+      if constexpr (STAGE == kStageBasic) {
+        for (int k = 0; k < B; ++k) {
+          const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
+          const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
+          sacc[k * bd] += (sf[mu * bd] * p.w) * (spx[ax * bd] * (spy[ay * bd] * spz[az * bd]));
+        }
+      } else {
+        // `_pair_force_terms`: T_a = u_a sum_k g W1 U + sum_k g W2 alpha_a
+        // u^(alpha - e_a), W2 = f/d, W1 = f' - rank f/d
+        if constexpr (STAGE == kStageTailCand)
+          for (int mu = 0; mu < MU; ++mu) sgmu[mu * bd] = 0.f;
+        float P = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
+        for (int k = 0; k < B; ++k) {
+          const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
+          const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
+          const int rank = ax + ay + az;
+          const float gk = sacc[k * bd];
+          const float W2 = sf[mu * bd] * g.inv_d;
+          const float fpm = sfp[mu * bd];
+          const float W1 = rank ? fpm - (float)rank * W2 : fpm;
+          const float qx = spx[ax * bd], qy = spy[ay * bd], qz = spz[az * bd];
+          const float U = qx * (qy * qz);
+          P += (gk * W1) * U;
+          if constexpr (STAGE == kStageTailCand) sgmu[mu * bd] += gk * U;
+          if (rank) {
+            const float gw2 = gk * W2;
+            if (ax > 0) Dx += gw2 * ((float)ax * (spx[(ax - 1) * bd] * (qy * qz)));
+            if (ay > 0) Dy += gw2 * ((float)ay * (qx * (spy[(ay - 1) * bd] * qz)));
+            if (az > 0) Dz += gw2 * ((float)az * (qx * (qy * spz[(az - 1) * bd])));
+          }
+        }
+        out[o] = (P * g.ux + Dx) * p.w;
+        out[jn + o] = (P * g.uy + Dy) * p.w;
+        out[2 * jn + o] = (P * g.uz + Dz) * p.w;
+        if constexpr (STAGE == kStageTailCand)
+          rad_rows(srad, bd, p.jt, MU, RB, g, p.w, [&](int mu) { return sgmu[mu * bd]; });
+      }
+    });
+    if constexpr (STAGE == kStageBasic)
+      for (int k = 0; k < B; ++k) out[(long long)k * n + i] = sacc[k * bd];
+  }
+  if constexpr (STAGE == kStageTailCand) {
+    const int nrad = S * MU * RB;
+    for (int q = 0; q < nrad; ++q) rad[(long long)i * nrad + q] = srad[q * bd];
+  }
+}
+
+// sum over q in [q0, q1) of x[i0(q)] * y[i1(q)] * mult(q), entries (i0 | i1
+// << 16, mult), in table order; four products are loaded and formed at a
+// time so that their shared-memory reads overlap
+__device__ __forceinline__ float segment_sum(const int2* e, int q0, int q1, const float* x,
+                                             const float* y, int W, int a) {
+  float acc = 0.f;
+  int q = q0;
+  for (; q + 4 <= q1; q += 4) {
+    float p[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int2 v = e[q + u];
+      p[u] = x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (float)v.y;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc += p[u];
+  }
+  for (; q < q1; ++q) {
+    const int2 v = e[q];
+    acc += x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (float)v.y;
+  }
+  return acc;
+}
+
+// The product DAG of W atoms per block, one atom per lane; the warps split
+// each wave's targets, which the host orders longest segment first so that
+// round-robin shares them out evenly (module comment). mbg holds the basic
+// moments (B, N) on entry; K2 and K5 write gamma = dm[:B] over them.
+template <int MODE, bool kStaged>
+__global__ void __launch_bounds__(kDagThreads)
+dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ per_atom,
+           const int* __restrict__ tab, const int* __restrict__ mapping,
+           float* __restrict__ site, float* __restrict__ bm, int n, int B, int M, int n_waves,
+           int n_scal, int W, int n_dag) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int i = blockIdx.x * W + lane;
+  const bool on = lane < W && i < n;
+  const int a = min(lane, W - 1);  // lanes >= W read a real column, write nothing
+  float* m = smem;                 // [M][W]
+  float* dm = smem + (long long)M * W;  // [max(M, nw)][W]
+  // the DAG sections (n_dag ints from an even offset) in shared memory when
+  // they fit beside m and dm (kStaged), so that table reads are shared
+  // loads and wait on no cache
+  const int base = tab[kFwdWave] & ~1;
+  const int* dag = tab + base;
+  if constexpr (kStaged) {
+    int2* st = reinterpret_cast<int2*>(smem + dag_floats(M, W));
+    const int2* src = reinterpret_cast<const int2*>(tab + base);
+#pragma unroll 4
+    for (int q = threadIdx.x; q < n_dag / 2; q += blockDim.x) st[q] = __ldg(src + q);
+    dag = reinterpret_cast<const int*>(st);
+  }
+  if (lane < W) {
+#pragma unroll 8
+    for (int k = warp; k < B; k += nw) m[k * W + a] = on ? __ldcg(mbg + (long long)k * n + i) : 0.f;
+    for (int k = B + warp; k < M; k += nw) m[k * W + a] = 0.f;
+  }
+  __syncthreads();
+
+  const int* fwave = dag + (tab[kFwdWave] - base);
+  const int* ftgt = dag + (tab[kFwdTarget] - base);
+  const int* fseg = dag + (tab[kFwdSeg] - base);
+  const int2* fprod = reinterpret_cast<const int2*>(dag + (tab[kFwdProd] - base));
+  for (int wv = 0; wv < n_waves; ++wv) {
+    for (int t = fwave[wv] + warp; t < fwave[wv + 1]; t += nw) {
+      const float acc = segment_sum(fprod, fseg[t], fseg[t + 1], m, m, W, a);
+      if (lane < W) m[ftgt[t] * W + a] += acc;
+    }
+    __syncthreads();
   }
 
   if constexpr (MODE == kSite || MODE == kCand) {
-    // ---- readout: site energy = esp + xi . m
+    // readout: site energy = esp + xi . m, each warp over its strided part
+    // of the nodes, the parts summed in warp order (dm is not in use yet)
     float e = 0.f;
-    for (int k = lane; k < M; k += 32) e += xi[k] * m[k];
-    e = warp_sum(e);
-    float* se = MODE == kSite ? out : site;
-    if (lane == 0) se[i] = e + per_atom[i];
+#pragma unroll 8
+    for (int k = warp; k < M; k += nw) {
+      const float x = __ldg(xi + k);
+      if (x != 0.f) e += x * m[k * W + a];
+    }
+    float* part = dm;  // [nw][W], within dm's max(M, nw) rows
+    if (lane < W) part[warp * W + a] = e;
+    __syncthreads();
+    if (warp == 0 && on) {
+      float sum = 0.f;
+      for (int w = 0; w < nw; ++w) sum += part[w * W + a];
+      site[i] = sum + per_atom[i];
+    }
     if constexpr (MODE == kSite) return;
-    // ---- scalar basis members m[mapping] (the candidate vector's tail)
-    for (int q = lane; q < n_scal; q += 32)
-      bm[(long long)i * n_scal + q] = m[mapping[q]];
+    // scalar basis members m[mapping] (the candidate vector's tail)
+    if (on)
+      for (int q = warp; q < n_scal; q += nw)
+        bm[(long long)i * n_scal + q] = m[__ldg(mapping + q) * W + a];
+    __syncthreads();  // the parts are read before dm is written
   }
 
   if constexpr (MODE == kForces || MODE == kCand) {
-    // ---- reverse DAG from dm = xi * de (K5: de = 1): one lane per node
+    // reverse DAG from dm = xi * de (K5: de = 1), grouped by written node
     float de = 1.f;
-    if constexpr (MODE == kForces) de = per_atom ? per_atom[i] : 1.f;
-    for (int k = lane; k < M; k += 32) dm[k] = xi[k] * de;
-    __syncwarp();
-    const int* rwave = tab + tab[kRevWave];
-    const int* rnode = tab + tab[kRevNode];
-    const int* rseg = tab + tab[kRevSeg];
-    const int* rent = tab + tab[kRevEnt];
+    if constexpr (MODE == kForces) de = (per_atom && on) ? per_atom[i] : 1.f;
+    if (lane < W) {
+#pragma unroll 8
+      for (int k = warp; k < M; k += nw) dm[k * W + a] = __ldg(xi + k) * de;
+    }
+    __syncthreads();
+    const int* rwave = dag + (tab[kRevWave] - base);
+    const int* rnode = dag + (tab[kRevNode] - base);
+    const int* rseg = dag + (tab[kRevSeg] - base);
+    const int2* rent = reinterpret_cast<const int2*>(dag + (tab[kRevEnt] - base));
     for (int wv = n_waves - 1; wv >= 0; --wv) {
-      for (int t = rwave[wv] + lane; t < rwave[wv + 1]; t += 32) {
-        float acc = 0.f;
-        for (int q = rseg[t]; q < rseg[t + 1]; ++q) {
-          const int* e = rent + 3 * q;
-          acc += dm[e[0]] * m[e[1]] * (float)e[2];
-        }
-        dm[rnode[t]] += acc;
+      for (int t = rwave[wv] + warp; t < rwave[wv + 1]; t += nw) {
+        const float acc = segment_sum(rent, rseg[t], rseg[t + 1], dm, m, W, a);
+        if (lane < W) dm[rnode[t] * W + a] += acc;
       }
-      __syncwarp();
+      __syncthreads();
     }
-  }
-
-  if constexpr (MODE == kGammaForces) {
-    // ---- gamma = dE/d(basic moments) from memory, (B, N)
-    for (int k = lane; k < B; k += 32) dm[k] = per_atom[(long long)k * n + i];
-    __syncwarp();
-  }
-
-  // ---- pair forces from gamma = dm[:B] (`_pair_force_terms`):
-  // T_a = u_a sum_k g_k W1_k U_k + sum_k g_k W2_k alpha_a u^(alpha - e_a),
-  // W2 = f/d, W1 = f' - rank f/d
-  for (int s = lane; s < j; s += 32) {
-    if constexpr (MODE == kCand)
-      for (int mu = 0; mu < MU; ++mu) sgmu[mu * jp + s] = 0.f;
-    const float inv_d = sinv[s];
-    float P = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
-    for (int k = 0; k < B; ++k) {
-      const int mu = basic[4 * k], ax = basic[4 * k + 1];
-      const int ay = basic[4 * k + 2], az = basic[4 * k + 3];
-      const int rank = ax + ay + az;
-      const float g = dm[k];
-      const float W2 = sf[mu * jp + s] * inv_d;
-      const float fp = sfp[mu * jp + s];
-      const float W1 = rank ? fp - (float)rank * W2 : fp;
-      const float px = spx[ax * jp + s];
-      const float py = spy[ay * jp + s];
-      const float pz = spz[az * jp + s];
-      const float U = px * (py * pz);
-      P += (g * W1) * U;
-      if constexpr (MODE == kCand) sgmu[mu * jp + s] += g * U;
-      if (rank) {
-        const float gw2 = g * W2;
-        if (ax > 0) Dx += gw2 * ((float)ax * (spx[(ax - 1) * jp + s] * (py * pz)));
-        if (ay > 0) Dy += gw2 * ((float)ay * (px * (spy[(ay - 1) * jp + s] * pz)));
-        if (az > 0) Dz += gw2 * ((float)az * (px * (py * spz[(az - 1) * jp + s])));
-      }
-    }
-    const float w = sw[s];
-    const long long q = (long long)s * n + i;
-    out[q] = (P * sux[s] + Dx) * w;
-    out[jn + q] = (P * suy[s] + Dy) * w;
-    out[2 * jn + q] = (P * suz[s] + Dz) * w;
-  }
-
-  if constexpr (MODE == kCand) {
-    // ---- radial-Jacobian rows, (s2, mu, r) order; real slots s < j only
-    __syncwarp();
-    const int nrad = S * MU * RB;
-    for (int q = 0; q < nrad; ++q) {
-      const int s2 = q / (MU * RB), mu = (q / RB) % MU, r = q % RB;
-      float acc = 0.f;
-      for (int s = lane; s < j; s += 32)
-        if (sjt[s] == s2) acc += (sw[s] * scheb[r * jp + s]) * sgmu[mu * jp + s];
-      acc = warp_sum(acc);
-      if (lane == 0) rad[(long long)i * nrad + q] = acc;
-    }
+    if (on)
+      for (int k = warp; k < B; k += nw) __stcg(mbg + (long long)k * n + i, dm[k * W + a]);
   }
 }
 
-template <int MODE>
-int launch(const Params& p, void* stream) {
-  if (p.n == 0) return 0;
-  const int jp = (p.j + 31) & ~31;
-  const size_t smem =
-      kWarps * (size_t)per_warp_floats(MODE, jp, p.MU, p.RB, p.R, p.M) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mega_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned blocks = (unsigned)((p.n + kWarps - 1) / kWarps);
-  mega_kernel<MODE><<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      p.dispT, p.mask, p.itypes, p.jtypes_t, p.radial, p.xi, p.per_atom, p.tab, p.mapping,
-      p.out, p.site, p.bm, p.rad, p.n, p.j, p.S, p.MU, p.RB, p.R, p.B, p.M, p.n_waves,
-      p.n_scal, p.lo, p.hi, p.scaling);
+// ---- launchers
+
+struct Args {
+  const float *dispT, *mask;
+  const int *itypes, *jtypes_t;
+  const float *radial, *xi, *per_atom;
+  const int *tab, *mapping;
+  float *out, *scratch, *site, *bm, *rad;
+  int n, j, S, MU, RB, R, B, M, n_waves, n_dag, n_scal, shape;
+  float lo, hi, scaling;
+  cudaStream_t stream;
+};
+
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// block size and dynamic shared memory of a pair stage
+template <class Sh, int STAGE>
+void pair_config(const Args& a, int* bd, size_t* smem) {
+  *bd = Sh::kSpecial ? kPairThreads : 32;
+  const int ncoef = a.S * a.S * a.MU * a.RB;
+  const int nb = Sh::kSpecial ? 0 : 4 * a.B;
+  *smem = sizeof(float) *
+          (ncoef + nb + (size_t)*bd * pair_cols<Sh, STAGE>(a.S, a.MU, a.RB, a.R, a.B));
+}
+
+// atoms per DAG block: as many (up to one per lane) as keep two blocks per
+// SM; the block's dynamic shared memory (m and dm, and the DAG sections of
+// the table when they fit beside them)
+void dag_config(const Args& a, int* W, size_t* smem, bool* staged) {
+  constexpr size_t kBudget = 113 * 1024;
+  *W = 32;
+  while (*W > 1 && (size_t)dag_floats(a.M, *W) * sizeof(float) > kBudget) *W >>= 1;
+  *smem = (size_t)dag_floats(a.M, *W) * sizeof(float);
+  *staged = *smem + (size_t)a.n_dag * sizeof(int) <= kBudget;
+  if (*staged) *smem += (size_t)a.n_dag * sizeof(int);
+}
+
+template <class Sh, int STAGE>
+int launch_pair_as(const Args& a, const float* gamma, float* out, float* rad) {
+  int bd;
+  size_t smem;
+  pair_config<Sh, STAGE>(a, &bd, &smem);
+  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE>, smem)) return e;
+  const unsigned blocks = (unsigned)((a.n + bd - 1) / bd);
+  pair_kernel<Sh, STAGE><<<blocks, bd, smem, a.stream>>>(
+      a.dispT, a.mask, a.itypes, a.jtypes_t, a.radial, a.tab, gamma, out, rad, a.n, a.j, a.S,
+      a.MU, a.RB, a.R, a.B, a.lo, a.hi, a.scaling);
   return (int)cudaGetLastError();
 }
 
-Params params(const void* dispT, const void* mask, const void* itypes, const void* jtypes_t,
-              const void* radial, const void* xi, const void* per_atom, const void* tab,
-              void* out, int n, int j, int S, int MU, int RB, int R, int B, int M,
-              int n_waves, float lo, float hi, float scaling) {
-  Params p = {};
-  p.dispT = (const float*)dispT;
-  p.mask = (const float*)mask;
-  p.itypes = (const int*)itypes;
-  p.jtypes_t = (const int*)jtypes_t;
-  p.radial = (const float*)radial;
-  p.xi = (const float*)xi;
-  p.per_atom = (const float*)per_atom;
-  p.tab = (const int*)tab;
-  p.out = (float*)out;
-  p.n = n;
-  p.j = j;
-  p.S = S;
-  p.MU = MU;
-  p.RB = RB;
-  p.R = R;
-  p.B = B;
-  p.M = M;
-  p.n_waves = n_waves;
-  p.lo = lo;
-  p.hi = hi;
-  p.scaling = scaling;
-  return p;
+// resident warps per SM of a pair stage (cudaOccupancy...), into *warps
+template <class Sh, int STAGE>
+int pair_warps_as(const Args& a, int* warps) {
+  int bd, blocks = 0;
+  size_t smem;
+  pair_config<Sh, STAGE>(a, &bd, &smem);
+  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE>, smem)) return e;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pair_kernel<Sh, STAGE>, bd, smem);
+  *warps = blocks * bd / 32;
+  return e;
+}
+
+template <int STAGE>
+int launch_pair(const Args& a, const float* gamma, float* out, float* rad = nullptr) {
+  if (a.n == 0) return 0;
+  switch (a.shape) {
+#define MTP_CASE(id, ...) \
+  case id:                \
+    return launch_pair_as<Shells<__VA_ARGS__>, STAGE>(a, gamma, out, rad);
+    MTP_SHAPES(MTP_CASE)
+#undef MTP_CASE
+    default:
+      return launch_pair_as<General, STAGE>(a, gamma, out, rad);
+  }
+}
+
+template <int STAGE>
+int pair_warps(const Args& a, int* warps) {
+  switch (a.shape) {
+#define MTP_CASE(id, ...) \
+  case id:                \
+    return pair_warps_as<Shells<__VA_ARGS__>, STAGE>(a, warps);
+    MTP_SHAPES(MTP_CASE)
+#undef MTP_CASE
+    default:
+      return pair_warps_as<General, STAGE>(a, warps);
+  }
+}
+
+// the DAG keeps two blocks of m and dm per SM: ask for the largest carveout
+template <int MODE, bool kStaged>
+int dag_smem(size_t smem) {
+  const void* k = (const void*)dag_kernel<MODE, kStaged>;
+  if (const int e = set_smem(k, smem)) return e;
+  return (int)cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+}
+
+template <int MODE>
+int launch_dag(const Args& a, float* site) {
+  if (a.n == 0) return 0;
+  int W;
+  size_t smem;
+  bool staged;
+  dag_config(a, &W, &smem, &staged);
+  const unsigned blocks = (unsigned)((a.n + W - 1) / W);
+  if (staged) {
+    if (const int e = dag_smem<MODE, true>(smem)) return e;
+    dag_kernel<MODE, true><<<blocks, kDagThreads, smem, a.stream>>>(
+        a.scratch, a.xi, a.per_atom, a.tab, a.mapping, site, a.bm, a.n, a.B, a.M, a.n_waves,
+        a.n_scal, W, a.n_dag);
+  } else {
+    if (const int e = dag_smem<MODE, false>(smem)) return e;
+    dag_kernel<MODE, false><<<blocks, kDagThreads, smem, a.stream>>>(
+        a.scratch, a.xi, a.per_atom, a.tab, a.mapping, site, a.bm, a.n, a.B, a.M, a.n_waves,
+        a.n_scal, W, a.n_dag);
+  }
+  return (int)cudaGetLastError();
+}
+
+Args args(const void* dispT, const void* mask, const void* itypes, const void* jtypes_t,
+          const void* radial, const void* xi, const void* per_atom, const void* tab, void* out,
+          void* scratch, int n, int j, int S, int MU, int RB, int R, int B, int M, int n_waves,
+          int n_dag, int shape, float lo, float hi, float scaling, void* stream) {
+  Args a = {};
+  a.dispT = (const float*)dispT;
+  a.mask = (const float*)mask;
+  a.itypes = (const int*)itypes;
+  a.jtypes_t = (const int*)jtypes_t;
+  a.radial = (const float*)radial;
+  a.xi = (const float*)xi;
+  a.per_atom = (const float*)per_atom;
+  a.tab = (const int*)tab;
+  a.out = (float*)out;
+  a.scratch = (float*)scratch;
+  a.n = n;
+  a.j = j;
+  a.S = S;
+  a.MU = MU;
+  a.RB = RB;
+  a.R = R;
+  a.B = B;
+  a.M = M;
+  a.n_waves = n_waves;
+  a.n_dag = n_dag;
+  a.shape = shape;
+  a.lo = lo;
+  a.hi = hi;
+  a.scaling = scaling;
+  a.stream = (cudaStream_t)stream;
+  return a;
 }
 
 }  // namespace
 
 // The K4, K2, K6 and K7 entry points share one argument list; per_atom is
-// esp (K4), de or NULL for 1 (K2), unused (K6), gamma (B, N) (K7).
-#define MTP_ARGS                                                                    \
-  const void *dispT, const void *mask, const void *itypes, const void *jtypes_t,   \
-      const void *radial, const void *xi, const void *per_atom, const void *tab,   \
-      void *out, int n, int j, int S, int MU, int RB, int R, int B, int M,         \
-      int n_waves, float lo, float hi, float scaling, void *stream
-#define MTP_PARAMS                                                                  \
-  params(dispT, mask, itypes, jtypes_t, radial, xi, per_atom, tab, out, n, j, S, MU, \
-         RB, R, B, M, n_waves, lo, hi, scaling)
+// esp (K4), de or NULL for 1 (K2), unused (K6), gamma (B, N) (K7); scratch
+// is a (B, N) fp32 buffer (K4, K2; unused by K6, K7); n_dag is the length of
+// the table from its fwd_wave section, rounded down to an even offset, to
+// its end; shape is the specialised shape id of the schedule, 0 for General.
+#define MTP_ARGS                                                                     \
+  const void *dispT, const void *mask, const void *itypes, const void *jtypes_t,    \
+      const void *radial, const void *xi, const void *per_atom, const void *tab,    \
+      void *out, void *scratch, int n, int j, int S, int MU, int RB, int R, int B,  \
+      int M, int n_waves, int n_dag, int shape, float lo, float hi, float scaling,  \
+      void *stream
+#define MTP_PARAMS                                                                    \
+  args(dispT, mask, itypes, jtypes_t, radial, xi, per_atom, tab, out, scratch, n, j, S, \
+       MU, RB, R, B, M, n_waves, n_dag, shape, lo, hi, scaling, stream)
+
+// Resident warps per SM of each stage kernel for this schedule: warps[0]
+// basic, [1] tail, [2] tail with the radial rows (K5), [3] DAG (K2); [4]
+// the DAG's atoms per block, [5] 1 if its table is staged in shared memory.
+extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, int n_dag,
+                                   int shape, int* warps) {
+  Args a = {};
+  a.S = S;
+  a.MU = MU;
+  a.RB = RB;
+  a.R = R;
+  a.B = B;
+  a.M = M;
+  a.n_dag = n_dag;
+  a.shape = shape;
+  if (const int e = pair_warps<kStageBasic>(a, warps)) return e;
+  if (const int e = pair_warps<kStageTail>(a, warps + 1)) return e;
+  if (const int e = pair_warps<kStageTailCand>(a, warps + 2)) return e;
+  int W, blocks = 0;
+  size_t smem;
+  bool staged;
+  dag_config(a, &W, &smem, &staged);
+  const void* k = staged ? (const void*)dag_kernel<kForces, true>
+                         : (const void*)dag_kernel<kForces, false>;
+  if (const int e = staged ? dag_smem<kForces, true>(smem) : dag_smem<kForces, false>(smem))
+    return e;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kDagThreads, smem);
+  warps[3] = blocks * kDagThreads / 32;
+  warps[4] = W;
+  warps[5] = staged;
+  return e;
+}
 
 // K4: site energies (N,) = esp + xi . m
-extern "C" int mtp_site_energies_mega(MTP_ARGS) { return launch<kSite>(MTP_PARAMS, stream); }
+extern "C" int mtp_site_energies_mega(MTP_ARGS) {
+  const Args a = MTP_PARAMS;
+  if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
+  return launch_dag<kSite>(a, a.out);
+}
 
 // K2: pair forces (3, J, N) = de_i * d(site_e_i)/d(dispT); de == NULL means 1
-extern "C" int mtp_pair_forces_mega(MTP_ARGS) { return launch<kForces>(MTP_PARAMS, stream); }
+extern "C" int mtp_pair_forces_mega(MTP_ARGS) {
+  const Args a = MTP_PARAMS;
+  if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
+  if (const int e = launch_dag<kForces>(a, nullptr)) return e;
+  return launch_pair<kStageTail>(a, a.scratch, a.out);
+}
 
 // K6: basic moments (B, N)
 extern "C" int mtp_basic_moments_fused(MTP_ARGS) {
-  return launch<kBasicOnly>(MTP_PARAMS, stream);
+  const Args a = MTP_PARAMS;
+  return launch_pair<kStageBasic>(a, nullptr, a.out);
 }
 
 // K7: pair forces (3, J, N) = gamma . d(basic moments)/d(dispT), gamma (B, N)
 extern "C" int mtp_basic_moments_vjp(MTP_ARGS) {
-  return launch<kGammaForces>(MTP_PARAMS, stream);
+  const Args a = MTP_PARAMS;
+  return launch_pair<kStageTail>(a, a.per_atom, a.out);
 }
 
 // K5: site energies (N,), basis members (N, n_scal), radial rows
@@ -442,16 +948,16 @@ extern "C" int mtp_basic_moments_vjp(MTP_ARGS) {
 extern "C" int mtp_candidates_mega(const void* dispT, const void* mask, const void* itypes,
                                    const void* jtypes_t, const void* radial, const void* xi,
                                    const void* esp, const void* tab, const void* mapping,
-                                   void* site, void* bm, void* rad, void* pair, int n, int j,
-                                   int S, int MU, int RB, int R, int B, int M, int n_waves,
-                                   int n_scal, float lo, float hi, float scaling,
-                                   void* stream) {
-  Params p = params(dispT, mask, itypes, jtypes_t, radial, xi, esp, tab, pair, n, j, S, MU,
-                    RB, R, B, M, n_waves, lo, hi, scaling);
-  p.mapping = (const int*)mapping;
-  p.site = (float*)site;
-  p.bm = (float*)bm;
-  p.rad = (float*)rad;
-  p.n_scal = n_scal;
-  return launch<kCand>(p, stream);
+                                   void* site, void* bm, void* rad, void* pair, void* scratch,
+                                   int n, int j, int S, int MU, int RB, int R, int B, int M,
+                                   int n_waves, int n_dag, int n_scal, int shape, float lo,
+                                   float hi, float scaling, void* stream) {
+  Args a = args(dispT, mask, itypes, jtypes_t, radial, xi, esp, tab, pair, scratch, n, j, S,
+                MU, RB, R, B, M, n_waves, n_dag, shape, lo, hi, scaling, stream);
+  a.mapping = (const int*)mapping;
+  a.bm = (float*)bm;
+  a.n_scal = n_scal;
+  if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
+  if (const int e = launch_dag<kCand>(a, (float*)site)) return e;
+  return launch_pair<kStageTailCand>(a, a.scratch, a.out, (float*)rad);
 }

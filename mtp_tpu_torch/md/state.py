@@ -10,6 +10,7 @@ import dataclasses
 import torch
 
 from mtp_tpu_torch.utils import units
+from mtp_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -30,8 +31,10 @@ class MDState:
 
 
 def init_state(
-    positions, types, masses, cell, *, velocities=None, dtype=torch.float32, device="cpu"
+    positions, types, masses, cell, *, velocities=None, dtype=torch.float32, device="cuda"
 ):
+    device = resolve_device(device)
+
     def f(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 

@@ -33,6 +33,7 @@ from mtp_tpu_torch.ops.fused_moments import (
 from mtp_tpu_torch.ops.moments import MTPSchedule, energy_and_pair_forces
 from mtp_tpu_torch.ops.window_disp import inverse_cell, minimum_image, window_disp
 from mtp_tpu_torch.ops.window_giveback import window_giveback
+from mtp_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "MTPCoeffs", "MTPModel", "minimum_image", "gather_displacements",
@@ -70,8 +71,7 @@ class MTPModel:
         return self.schedule.max_dist
 
     @classmethod
-    def from_data(cls, m: MTPData, *, device="cpu", dtype=torch.float32) -> "MTPModel":
-        device = torch.device(device)
+    def from_data(cls, m: MTPData, *, device="cuda", dtype=torch.float32) -> "MTPModel":
         sched = MTPSchedule.from_tables(
             species_count=m.species_count,
             radial_basis_size=m.radial_basis_size,
@@ -98,7 +98,7 @@ class MTPModel:
         cls, sched, radial, species, moment, *, device, dtype,
         inverse_active_set=None, active_set=None, configuration_mode=False,
     ) -> "MTPModel":
-        device = torch.device(device)
+        device = resolve_device(device)
 
         def t(a):
             return torch.as_tensor(np.array(a), dtype=dtype, device=device).contiguous()
@@ -117,7 +117,7 @@ class MTPModel:
         )
 
     @classmethod
-    def load(cls, path: str, *, device="cpu", dtype=torch.float32) -> "MTPModel":
+    def load(cls, path: str, *, device="cuda", dtype=torch.float32) -> "MTPModel":
         from mtp_tpu_torch.io.mtp_file import load_mtp
 
         return cls.from_data(load_mtp(path), device=device, dtype=dtype)

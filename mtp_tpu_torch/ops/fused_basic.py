@@ -5,9 +5,10 @@ Port of ``mtp_tpu/ops/pallas_moments.py:196 _fwd_kernel`` and :219
 ``_bwd_kernel``: :func:`basic_moments_fused` (``:271``) is a
 ``torch.autograd.Function`` whose forward is K6 and whose backward is K7 (pair
 forces from a given gamma = dE/d(basic moments), a cotangent for dispT only,
-as ``_fused_bwd`` :330). Both are modes of ``csrc/fused_moments.cu``: K6 is
-the per-slot stage and basic-moment reduction of the fused chain, writing
-m[:B] as (B, N); K7 is the per-slot stage and force tail, reading gamma
+as ``_fused_bwd`` :330). Both are stage kernels of ``csrc/fused_moments.cu``:
+K6 is the basic stage of the fused chain (per-pair stage and basic moments),
+writing m[:B] as (B, N); K7 is its tail stage (per-pair stage with
+derivatives and force tail), reading gamma
 (B, N) from memory. :func:`site_energies_fused` (``:799``) adds the product
 DAG as plain torch (:func:`contract_dag_t`) and the readout.
 

@@ -3,8 +3,8 @@ members, radial-Jacobian rows and pair forces from one per-pair stage and one
 DAG.
 
 Port of ``mtp_tpu/ops/pallas_moments.py:589 _mega_cand_kernel`` (through
-``candidates_mega`` :674). The CUDA kernel is the ``kCand`` mode of
-``csrc/fused_moments.cu``: K2's per-atom chain with de = 1, plus the readout
+``candidates_mega`` :674). The CUDA entry point runs K2's stage kernels of
+``csrc/fused_moments.cu`` with de = 1 (their K5 variants), plus the readout
 and the basis members before the reverse pass, and the radial rows
 ``rad[s2, mu, r] = sum_s [jt(s) = s2] w(s) cheb_r(s) Gmu[mu](s)`` with
 ``Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s)`` gathered in the force tail.
@@ -30,7 +30,7 @@ import torch
 
 from mtp_tpu_torch.kernels._build import Kernel
 from mtp_tpu_torch.ops import moments
-from mtp_tpu_torch.ops.fused_moments import _check
+from mtp_tpu_torch.ops.fused_moments import _check, scratch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +41,7 @@ K5 = Kernel(
     symbol="mtp_candidates_mega",
     source="mtp_tpu_torch/csrc/fused_moments.cu",
     replaces="mtp_tpu/ops/pallas_moments.py:589",
-    argtypes=(_P,) * 13 + (_I,) * 10 + (_F,) * 3 + (_P,),
+    argtypes=(_P,) * 14 + (_I,) * 12 + (_F,) * 3 + (_P,),
 )
 
 
@@ -122,14 +122,16 @@ def candidates_mega(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_ful
         rad=torch.empty((n, n_rad), **f32),
         pair_tT=torch.empty_like(dispT),
     )
+    work = scratch(tables, dispT)
     K5.launch(
         dispT.data_ptr(), mask.data_ptr(), itypes.data_ptr(), jtypes_t.data_ptr(),
         radial_coeffs.data_ptr(), xi_full.data_ptr(), esp.data_ptr(),
         tables.tab.data_ptr(), tables.mapping_i32.data_ptr(),
         out["site_e"].data_ptr(), out["basis_members"].data_ptr(), out["rad"].data_ptr(),
-        out["pair_tT"].data_ptr(),
+        out["pair_tT"].data_ptr(), work.data_ptr(),
         n, j, s.species_count, s.radial_funcs_count, s.radial_basis_size,
-        s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves, n_scal,
+        s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves, tables.n_dag, n_scal,
+        tables.shape,
         s.min_dist, s.max_dist, s.scaling,
         torch.cuda.current_stream(dispT.device).cuda_stream,
     )

@@ -1,9 +1,11 @@
 """Fused per-atom MTP chain: site energies (K4) and pair forces (K2).
 
-Port of ``mtp_tpu/ops/pallas_moments.py``'s megakernels. Each CUDA kernel
-(``csrc/fused_moments.cu``) runs the whole chain for one atom per warp: the
-per-pair stage, the basic moments, the product DAG, and the readout (K4) or
-the reverse DAG and the per-pair force tail (K2). K2 is K4's backward
+Port of ``mtp_tpu/ops/pallas_moments.py``'s megakernels. Each entry point of
+``csrc/fused_moments.cu`` runs the whole chain as its stage kernels: the
+per-pair stage and the basic moments (one thread per atom), the product DAG
+(one atom per lane), and the readout (K4) or the reverse DAG and the per-pair
+force tail (K2), with the basic moments and their gradient in a (B, N)
+scratch buffer between stages. K2 is K4's backward
 (:class:`_SiteEnergiesMega`), as ``site_energies_mega.defvjp`` makes
 ``_mega_bwd_kernel`` the vjp of ``_mega_fwd_kernel`` in the JAX package, and
 it also runs alone (:func:`pair_forces_mega`) for force-only MD steps.
@@ -34,7 +36,7 @@ from mtp_tpu_torch.ops.moments import MTPSchedule
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGS = (_P,) * 9 + (_I,) * 9 + (_F,) * 3 + (_P,)
+_ARGS = (_P,) * 10 + (_I,) * 11 + (_F,) * 3 + (_P,)
 
 K4 = Kernel(
     name="site_energies_mega",
@@ -53,9 +55,51 @@ K2 = Kernel(
 
 # section order of the int32 table header (csrc/fused_moments.cu, enum)
 _SECTIONS = (
-    "basic", "fwd_wave", "fwd_target", "fwd_seg", "fwd_prod",
+    "basic", "shell_map", "fwd_wave", "fwd_target", "fwd_seg", "fwd_prod",
     "rev_wave", "rev_node", "rev_seg", "rev_ent",
 )
+_PACKED = ("fwd_prod", "rev_ent")  # (rows, 2) int32 read as int2: 8-byte aligned
+
+# The kernels' specialised shapes (csrc/fused_moments.cu MTP_SHAPES): id ->
+# the top rank R_mu of each radial function's basic moments. Level 8 and
+# level 16 (make_mtp) are of this form; every other schedule runs the
+# kernels' General instantiation (shape 0).
+SHAPES = {1: (2, 0), 2: (6, 4, 2, 0)}
+
+
+def monomials(rmax):
+    """(ax, ay, az) of every unit-vector monomial of rank <= rmax in the
+    kernels' order: rank-major, then ax and ay descending (``mono_ax``,
+    ``mono_ay``). The monomials of rank <= r are its first n_mono(r)."""
+    return [
+        (ax, ay, r - ax - ay)
+        for r in range(rmax + 1)
+        for ax in range(r, -1, -1)
+        for ay in range(r - ax, -1, -1)
+    ]
+
+
+def shell_ranks(sched: MTPSchedule):
+    """R_mu of each radial function when the basic set is exactly every
+    monomial of rank <= R_mu for mu = 0 .. MU-1 (each once), else None."""
+    b = sched.basic
+    ranks = []
+    for mu in range(sched.radial_funcs_count):
+        rows = b[b[:, 0] == mu]
+        if len(rows) == 0:
+            return None
+        ranks.append(int(rows[:, 1:].sum(axis=1).max()))
+    want = {(mu, *t) for mu, r in enumerate(ranks) for t in monomials(r)}
+    if len(b) != len(want) or set(map(tuple, b.tolist())) != want:
+        return None
+    return tuple(ranks)
+
+
+def shell_map(sched: MTPSchedule, ranks):
+    """Schedule row k of each canonical term c = off(mu) + t, t the
+    monomial's index in :func:`monomials` (mu-major)."""
+    row = {tuple(r): k for k, r in enumerate(sched.basic.tolist())}
+    return [row[(mu, *t)] for mu, r in enumerate(ranks) for t in monomials(r)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,34 +108,55 @@ class MegaTables:
 
     ``tab`` is one int32 tensor: a header of section offsets, then
       basic (B, 4)        mu, ax, ay, az of each basic moment;
+      shell_map (B,)      schedule row of each canonical term (specialised
+                          shapes; empty for the General instantiation);
       fwd_wave (W+1)      target-segment range of each DAG wave;
       fwd_target (T)      node each forward segment writes (unique per wave);
       fwd_seg (T+1)       product range of each target;
-      fwd_prod (P, 3)     a0, a1, mult of every product, grouped by target;
+      fwd_prod (P, 2)     a0 | a1 << 16, mult of every product, by target;
       rev_wave (W+1)      node-segment range of each wave, reverse pass;
       rev_node (Q)        node each reverse segment writes (unique per wave);
       rev_seg (Q+1)       entry range of each node;
-      rev_ent (E, 3)      a3, other input, mult: dm[node] += mult*dm[a3]*m[other].
-    Grouping by written node lets one lane own each sum, so duplicate
-    targets accumulate in a fixed order without atomics.
+      rev_ent (E, 2)      a3 | other << 16, mult: dm[node] += mult*dm[a3]*m[other].
+    Grouping by written node lets one thread own each sum, so duplicate
+    targets accumulate in a fixed order without atomics. ``shape`` is the
+    kernels' specialised shape id (:data:`SHAPES`), 0 for General;
+    ``n_prod`` the DAG's products P (the reverse pass has 2P entries).
     """
 
     sched: MTPSchedule
     tab: torch.Tensor
     n_waves: int
+    n_dag: int  # ints of the table from fwd_wave (even offset) to its (even) end
+    shape: int
+    n_prod: int
     mapping: torch.Tensor  # (n_scalar,) int64: moment slot of each coefficient
     mapping_i32: torch.Tensor  # the same slots as int32, for the K5 kernel
 
 
 def _group(node, rows):
-    """Stable-group `rows` by `node`: (unique nodes, segment offsets, rows)."""
+    """Stable-group `rows` by `node`: (unique nodes, segment offsets, rows),
+    the segments longest first (the kernel's warps take a wave's segments
+    round-robin; a segment's rows keep their order)."""
     order = np.argsort(node, kind="stable")
     node, rows = node[order], rows[order]
     uniq, starts = np.unique(node, return_index=True)
-    return uniq, np.append(starts, len(node)), rows
+    ends = np.append(starts[1:], len(node))
+    by_len = np.argsort(starts - ends, kind="stable")
+    rows = np.concatenate([rows[starts[g]:ends[g]] for g in by_len]) if len(node) else rows
+    lens = (ends - starts)[by_len]
+    return uniq[by_len], np.concatenate([[0], np.cumsum(lens)]), rows
+
+
+def _pack(rows):
+    """(n, 3) rows (i0, i1, mult) -> (n, 2) int32 (i0 | i1 << 16, mult)."""
+    rows = np.asarray(rows, np.int64).reshape(-1, 3)
+    return np.stack([rows[:, 0] | (rows[:, 1] << 16), rows[:, 2]], axis=1)
 
 
 def build_tables(sched: MTPSchedule, device) -> MegaTables:
+    if sched.alpha_moments_count >= 1 << 16:
+        raise ValueError("the kernels' DAG tables index moments in 16 bits")
     waves = sched.waves()
     fwd_wave, fwd_target, fwd_seg, fwd_prod = [0], [], [], []
     rev_wave, rev_node, rev_seg, rev_ent = [0], [], [], []
@@ -122,32 +187,63 @@ def build_tables(sched: MTPSchedule, device) -> MegaTables:
             parts.append(np.asarray([tail], np.int64))
         return np.concatenate(parts) if parts else np.zeros(0, np.int64)
 
+    ranks = shell_ranks(sched)
+    shape = next((k for k, v in SHAPES.items() if v == ranks), 0)
     sections = dict(
         basic=sched.basic.reshape(-1),
+        shell_map=np.asarray(shell_map(sched, ranks) if shape else [], np.int64),
         fwd_wave=np.asarray(fwd_wave),
         fwd_target=cat(fwd_target),
         fwd_seg=cat(fwd_seg, tail=n_prod),
-        fwd_prod=cat(fwd_prod),
+        fwd_prod=_pack(cat(fwd_prod)).reshape(-1),
         rev_wave=np.asarray(rev_wave),
         rev_node=cat(rev_node),
         rev_seg=cat(rev_seg, tail=n_ent),
-        rev_ent=cat(rev_ent),
+        rev_ent=_pack(cat(rev_ent)).reshape(-1),
     )
     sections = {k: np.asarray(v, np.int32) for k, v in sections.items()}
-    offsets, pos = [], len(_SECTIONS)
+    offsets, parts, pos = [], [], len(_SECTIONS)
     for name in _SECTIONS:
+        if name in _PACKED and pos % 2:
+            parts.append(np.zeros(1, np.int32))  # int2 alignment
+            pos += 1
         offsets.append(pos)
+        parts.append(sections[name])
         pos += len(sections[name])
-    flat = np.concatenate(
-        [np.asarray(offsets, np.int32)] + [sections[k] for k in _SECTIONS]
-    )
+    parts.append(np.zeros(pos % 2, np.int32))  # the DAG part copies as int2
+    flat = np.concatenate([np.asarray(offsets, np.int32)] + parts)
     return MegaTables(
         sched=sched,
         tab=torch.as_tensor(flat, device=device),
         n_waves=len(waves),
+        n_dag=len(flat) - (offsets[_SECTIONS.index("fwd_wave")] & ~1),
+        shape=shape,
+        n_prod=n_prod,
         mapping=torch.as_tensor(sched.mapping, device=device),
         mapping_i32=torch.as_tensor(sched.mapping.astype(np.int32), device=device),
     )
+
+
+def resident_warps(tables) -> dict:
+    """Resident warps per SM of each stage kernel for `tables`' schedule, by
+    CUDA's occupancy calculator on the current device, the DAG kernel's
+    atoms per block, and 1 if it stages its table in shared memory (else it
+    reads it through the read-only cache). Builds the kernels; needs a card."""
+    from mtp_tpu_torch.kernels._build import LIBRARY
+
+    fn = LIBRARY.get().mtp_fused_occupancy
+    fn.argtypes = (_I,) * 8 + (_P,)
+    fn.restype = _I
+    out = (ctypes.c_int * 6)()
+    s = tables.sched
+    err = fn(s.species_count, s.radial_funcs_count, s.radial_basis_size, s.max_rank,
+             s.basic_count, s.alpha_moments_count, tables.n_dag, tables.shape,
+             ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"occupancy query failed: error {err}")
+    keys = ("basic", "tail", "tail + radial rows", "DAG", "DAG atoms per block",
+            "DAG table staged")
+    return dict(zip(keys, out))
 
 
 # ---------------------------------------------------------------- plain ----
@@ -218,17 +314,25 @@ def _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_at
             raise ValueError("fused moments kernel inputs must share one device")
 
 
-def _launch(kernel, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_atom, out):
+def scratch(tables, dispT):
+    """The (B, N) fp32 buffer that carries the basic moments and their
+    gradient between a fused entry point's stage kernels."""
+    n = dispT.shape[2]
+    return torch.empty((tables.sched.basic_count, n), dtype=torch.float32, device=dispT.device)
+
+
+def _launch(kernel, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_atom, out,
+            work=None):
     s = tables.sched
     _, j, n = dispT.shape
     kernel.launch(
         dispT.data_ptr(), mask.data_ptr(), itypes.data_ptr(), jtypes_t.data_ptr(),
         radial_coeffs.data_ptr(), 0 if xi_full is None else xi_full.data_ptr(),
         0 if per_atom is None else per_atom.data_ptr(),
-        tables.tab.data_ptr(), out.data_ptr(),
+        tables.tab.data_ptr(), out.data_ptr(), 0 if work is None else work.data_ptr(),
         n, j, s.species_count, s.radial_funcs_count, s.radial_basis_size,
-        s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves,
-        s.min_dist, s.max_dist, s.scaling,
+        s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves, tables.n_dag,
+        tables.shape, s.min_dist, s.max_dist, s.scaling,
         torch.cuda.current_stream(dispT.device).cuda_stream,
     )
     return out
@@ -243,7 +347,8 @@ class _SiteEnergiesMega(torch.autograd.Function):
         ctx.save_for_backward(dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full)
         out = torch.empty((dispT.shape[2],), dtype=torch.float32, device=dispT.device)
         return _launch(
-            K4, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, esp, out
+            K4, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, esp, out,
+            scratch(tables, dispT),
         )
 
     @staticmethod
@@ -253,7 +358,8 @@ class _SiteEnergiesMega(torch.autograd.Function):
         _check(ctx.tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de)
         out = torch.empty_like(dispT)
         pair = _launch(
-            K2, ctx.tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de, out
+            K2, ctx.tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de, out,
+            scratch(ctx.tables, dispT),
         )
         return (pair,) + (None,) * 7
 
@@ -281,5 +387,6 @@ def pair_forces_mega(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_fu
     _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de)
     out = torch.empty_like(dispT)
     return _launch(
-        K2, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de, out
+        K2, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, de, out,
+        scratch(tables, dispT),
     )

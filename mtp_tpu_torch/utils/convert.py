@@ -16,7 +16,7 @@ from mtp_tpu_torch.models.mtp import MTPModel
 from mtp_tpu_torch.ops.moments import MTPSchedule
 
 
-def model_from_jax(jax_model, device="cpu", dtype=torch.float64) -> MTPModel:
+def model_from_jax(jax_model, device="cuda", dtype=torch.float64) -> MTPModel:
     """The port's :class:`MTPModel` holding a ``mtp_tpu.MTPModel``'s schedule,
     coefficients and active-learning selection state, on `device` in `dtype`."""
     s = jax_model.schedule

@@ -81,7 +81,7 @@ def _list(model, pos, cell, cut=None, j=64):
 def _with_mvs(m, mode):
     """`m` with an MVS state built by the port from the candidate vectors of
     two perturbed 108-atom boxes, so grades near the lattice are ~1."""
-    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64))
+    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64), device="cpu")
     rows = []
     for k, s in enumerate((0.05, 0.1)):
         pos, types, cell = _box(100 + k, jitter=s)
@@ -96,7 +96,7 @@ def al_models(mtp_level8):
     """(MTPData, JAX model, port model) with a neighborhood-mode MVS."""
     m = _with_mvs(mtp_level8, "neighborhood")
     jm = JaxModel.from_data(m, dtype=jnp.float64)
-    return m, jm, model_from_jax(jm)
+    return m, jm, model_from_jax(jm, device="cpu")
 
 
 @pytest.mark.parametrize("fixture", ["mtp_level8", "mtp_level8_2spec"])
@@ -104,7 +104,7 @@ def test_candidate_vectors_match_golden(fixture, request):
     m = request.getfixturevalue(fixture)
     pos, types, cell = _box(1, species=m.species_count)
     g = golden.compute(m, pos, types, cell=cell, compute_grades=True)
-    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64))
+    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64), device="cpu")
     nl = _list(tm, pos, cell)
     b, e = candidate_vectors(tm, _t(pos), _t(types, torch.int32), nl.idx, _t(cell))
     assert b.shape == g["energy_ders_wrt_coeffs"].shape == (len(pos), m.coeff_count)
@@ -123,7 +123,7 @@ def test_grades_match_golden(mtp_level8_2spec):
     m = dataclasses.replace(m, mvs=MVSData(0, 0, 0, 1, 2.0, a, np.linalg.inv(a)))
     pos, types, cell = _box(2, species=2)
     g = golden.compute(m, pos, types, cell=cell, compute_grades=True)
-    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64))
+    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64), device="cpu")
     b, _ = candidate_vectors(tm, _t(pos), _t(types, torch.int32), _list(tm, pos, cell).idx, _t(cell))
     np.testing.assert_allclose(nbh_grades(b, tm.inverse_active_set).numpy(), g["nbh_grades"],
                                rtol=1e-9)
@@ -245,7 +245,7 @@ def test_run_with_extrapolation_matches_jax_driver(al_models, tmp_path):
                  mon_j, sj, 10, al_every=5, ensemble="nve", dt=0.001)
     mon_j.close()
 
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     mon = ExtrapolationMonitor(tm, select_threshold=0.0, break_threshold=1e9,
                                output_path=str(tmp_path / "port.cfg"))
     seen = []
@@ -266,7 +266,7 @@ def test_run_with_extrapolation_matches_jax_driver(al_models, tmp_path):
 def test_break_threshold_flushes_before_raising(al_models, tmp_path):
     _, _, tm = al_models
     pos, types, masses, cell, vel = _md_start()
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     path = tmp_path / "break.cfg"
     mon = ExtrapolationMonitor(tm, select_threshold=0.0, break_threshold=0.0,
                                output_path=str(path))
@@ -284,10 +284,10 @@ def test_configuration_mode_matches_jax(mtp_level8, tmp_path):
     with the JAX monitor."""
     m = _with_mvs(mtp_level8, "configuration")
     jm = JaxModel.from_data(m, dtype=jnp.float64)
-    tm = model_from_jax(jm)
+    tm = model_from_jax(jm, device="cpu")
     assert tm.configuration_mode
     pos, types, cell = _box(8, jitter=0.12)
-    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=F64)
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=F64, device="cpu")
     mon = ExtrapolationMonitor(tm, select_threshold=0.0, output_path=str(tmp_path / "c.cfg"))
     g = mon.evaluate(st)
     want = JaxMonitor(jm).evaluate(init_jax(pos, types, np.full(len(pos), 58.693), cell,
@@ -308,7 +308,7 @@ def test_monitor_regrows_on_neighbor_overflow(al_models):
     grows max_neighbors until the build fits."""
     _, _, tm = al_models
     pos, types, cell = _box(9)
-    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=F64)
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=F64, device="cpu")
     small = ExtrapolationMonitor(tm, max_neighbors=4)
     g_small = float(small.evaluate(st))
     assert small.max_neighbors > 4
@@ -324,7 +324,7 @@ def test_driver_regrows_its_lists(al_models):
     pos, types, masses, cell, vel = _md_start()
     runs = []
     for j in (8, 64):
-        st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+        st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
         sim = Simulation(tm, max_neighbors=j, skin=0.6, steps_per_rebuild=5)
         mon = ExtrapolationMonitor(tm)
         runs.append((run_with_extrapolation(sim, mon, st, 5, al_every=5, dt=0.001), mon, sim))
@@ -337,9 +337,9 @@ def test_driver_regrows_its_lists(al_models):
 def test_monitor_refuses_a_model_without_mvs_and_other_ensembles(al_models, mtp_level8):
     _, _, tm = al_models
     with pytest.raises(ValueError, match="MVS"):
-        ExtrapolationMonitor(model_from_jax(JaxModel.from_data(mtp_level8, dtype=jnp.float64)))
+        ExtrapolationMonitor(model_from_jax(JaxModel.from_data(mtp_level8, dtype=jnp.float64), device="cpu"))
     pos, types, masses, cell, vel = _md_start()
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     with pytest.raises(ValueError, match="nvt"):
         run_with_extrapolation(Simulation(tm, max_neighbors=64, skin=0.6), ExtrapolationMonitor(tm),
                                st, 5, al_every=5, ensemble="nvt")

@@ -46,8 +46,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _case(dev, level, species, dtype=torch.float32):
-    m = make_mtp(level, species_count=species, seed=1)
+def _case(dev, level, species, dtype=torch.float32, **mint):
+    m = make_mtp(level, species_count=species, seed=1, **mint)
     model = MTPModel.from_data(m, device=dev, dtype=dtype)
     pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6), type_pattern=tuple(range(species)))
     pos = pos + np.random.default_rng(level).normal(0, 0.1, pos.shape)
@@ -83,10 +83,12 @@ def test_window_disp_is_exact(dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("level,species", [(8, 2), (16, 2), (16, 1)])
+@pytest.mark.parametrize("level,species", [(8, 1), (8, 2), (16, 2), (16, 1)])
 def test_fused_kernels_match_plain(dev, level, species):
-    """One binary serves every level: the schedule is a run-time table."""
+    """K4 and K2 on their specialised shapes (levels 8 and 16), with and
+    without de, against the plain twins; two launches agree bit for bit."""
     model, pos_s, c, _, swl, k = _case(dev, level, species)
+    assert model.tables.shape != 0
     args = _inputs(model, pos_s, c, swl, k)
     e = fm.site_energies_mega(*args, k["esp"])
     t = fm.pair_forces_mega(*args)
@@ -95,7 +97,60 @@ def test_fused_kernels_match_plain(dev, level, species):
     assert _err(e, fm.site_energies_mega_plain(*args, k["esp"])) < 1e-5
     assert _err(t, fm.pair_forces_mega_plain(*args)) < 5e-5
     de = torch.rand(pos_s.shape[0], device=dev)
-    assert _err(fm.pair_forces_mega(*args, de=de), fm.pair_forces_mega_plain(*args, de=de)) < 5e-5
+    td = fm.pair_forces_mega(*args, de=de)
+    assert _err(td, fm.pair_forces_mega_plain(*args, de=de)) < 5e-5
+    assert torch.equal(e, fm.site_energies_mega(*args, k["esp"]))
+    assert torch.equal(t, fm.pair_forces_mega(*args))
+    assert torch.equal(td, fm.pair_forces_mega(*args, de=de))
+
+
+def test_general_shape_matches_plain(dev):
+    """A schedule with no specialised instantiation (level 12, 10 Chebyshev
+    functions) runs every mode on the General one and matches the plain
+    twins."""
+    model, pos_s, c, _, swl, k = _case(dev, 12, 2, radial_basis_size=10)
+    assert model.tables.shape == 0
+    args = _inputs(model, pos_s, c, swl, k)
+    assert _err(fm.site_energies_mega(*args, k["esp"]),
+                fm.site_energies_mega_plain(*args, k["esp"])) < 1e-5
+    de = torch.rand(pos_s.shape[0], device=dev)
+    t = fm.pair_forces_mega(*args, de=de)
+    assert _err(t, fm.pair_forces_mega_plain(*args, de=de)) < 5e-5
+    assert torch.equal(t, fm.pair_forces_mega(*args, de=de))
+    got = fc.candidates_mega(*args, k["esp"])
+    want = fc.candidates_mega_plain(*args, k["esp"])
+    assert _err(got["pair_tT"], want["pair_tT"]) < 5e-5
+    assert _rel(got["rad"], want["rad"]) < 1e-5
+    assert _rel(got["basis_members"], want["basis_members"]) < 1e-5
+    mb = fb.basic_moments_fused(*args[:6])
+    assert _rel(mb, fb.basic_moments_fused_plain(*args[:6])) < 1e-5
+    gamma = torch.rand((model.schedule.basic_count, pos_s.shape[0]), device=dev)
+    assert _rel(fb.basic_moments_vjp(*args[:6], gamma),
+                fb.basic_moments_vjp_plain(*args[:6], gamma)) < 1e-5
+
+
+@pytest.mark.parametrize("level,staged", [(2, 1), (6, 1), (18, 0)])
+def test_dag_layouts_match_plain(dev, level, staged):
+    """Levels whose moment count M is below the DAG block's 16 warps (2, 6:
+    K4's and K5's readout partial sums need more rows than m has), and a
+    level whose DAG table does not fit in shared memory beside m and dm
+    (18: read through the read-only cache, 16 atoms per block), against
+    the plain twins; K2 twice bit-equal."""
+    model, pos_s, c, _, swl, k = _case(dev, level, 1)
+    assert fm.resident_warps(model.tables)["DAG table staged"] == staged
+    args = _inputs(model, pos_s, c, swl, k)
+    assert _err(fm.site_energies_mega(*args, k["esp"]),
+                fm.site_energies_mega_plain(*args, k["esp"])) < 1e-5
+    de = torch.rand(pos_s.shape[0], device=dev)
+    t = fm.pair_forces_mega(*args, de=de)
+    assert _err(t, fm.pair_forces_mega_plain(*args, de=de)) < 5e-5
+    assert torch.equal(t, fm.pair_forces_mega(*args, de=de))
+    got = fc.candidates_mega(*args, k["esp"])
+    want = fc.candidates_mega_plain(*args, k["esp"])
+    assert _err(got["site_e"], want["site_e"]) < 1e-5
+    assert _err(got["pair_tT"], want["pair_tT"]) < 5e-5
+    assert _rel(got["basis_members"], want["basis_members"]) < 1e-5
+    assert _rel(got["rad"], want["rad"]) < 1e-5
 
 
 def test_site_energies_backward_is_pair_forces_kernel(dev):

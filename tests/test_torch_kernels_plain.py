@@ -121,7 +121,7 @@ def _random_pairs(rng, n, j, species):
 @pytest.fixture(scope="module")
 def mega_case(mtp_level8_2spec):
     jm = JaxModel.from_data(mtp_level8_2spec, dtype=jnp.float64)
-    tm = model_from_jax(jm, dtype=torch.float64)
+    tm = model_from_jax(jm, device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(11)
     n, j = 256, 64  # one 256-atom tile of the JAX megakernel
     dispT, mask, it, jt = _random_pairs(rng, n, j, 2)
@@ -182,20 +182,48 @@ def test_pair_forces_mega_weighted_vjp_matches_jax(mega_case):
     assert np.max(np.abs((g * targs[2][None]).numpy() - got)) < TOL
 
 
-def _sections(tab):
-    """Split the kernels' int32 table at its header's section offsets."""
-    from mtp_tpu_torch.ops.fused_moments import _SECTIONS
+def _sections(tables):
+    """Cut the kernels' int32 table at its header's section offsets, each
+    section as long as the kernels read it: its length follows from the
+    schedule and the sections before it. Each section ends at the next
+    offset, or one int before it where an int2 alignment pad follows."""
+    from mtp_tpu_torch.ops.fused_moments import _SECTIONS, SHAPES, shell_ranks
 
-    tab = tab.numpy()
-    ends = list(tab[1 : len(_SECTIONS)]) + [len(tab)]
-    return {k: tab[tab[i] : ends[i]] for i, k in enumerate(_SECTIONS)}
+    tab = tables.tab.numpy()
+    s = tables.sched
+    special = shell_ranks(s) in SHAPES.values()  # built with a shell map
+    off = [int(tab[i]) for i in range(len(_SECTIONS))] + [len(tab)]
+    got = {}
+
+    def cut(k, n):
+        i = _SECTIONS.index(k)
+        got[k] = tab[off[i] : off[i] + n]
+        assert off[i + 1] - (off[i] + n) in (0, 1), k
+        return got[k]
+
+    cut("basic", 4 * s.basic_count)
+    cut("shell_map", s.basic_count if special else 0)
+    for d, node, ent in (("fwd", "target", "prod"), ("rev", "node", "ent")):
+        n_seg = cut(f"{d}_wave", tables.n_waves + 1)[-1]
+        cut(f"{d}_{node}", n_seg)
+        cut(f"{d}_{ent}", 2 * cut(f"{d}_seg", n_seg + 1)[-1])
+    np.testing.assert_array_equal(got["basic"], s.basic.reshape(-1))
+    assert len(got["fwd_prod"]) == 2 * tables.n_prod
+    assert len(got["rev_ent"]) == 4 * tables.n_prod
+    return got
+
+
+def _unpack(rows):
+    """(n, 2) int32 (i0 | i1 << 16, mult) as the kernels read it: i0, i1, mult."""
+    rows = rows.reshape(-1, 2).astype(np.int64)
+    return np.stack([rows[:, 0] & 0xFFFF, rows[:, 0] >> 16, rows[:, 1]], axis=1)
 
 
 def _walk_forward(sec, n_waves, m):
     """The K4/K2 forward DAG as the CUDA kernel walks its tables."""
     m = m.copy()
     fw, tg, seg, pr = (sec[k] for k in ("fwd_wave", "fwd_target", "fwd_seg", "fwd_prod"))
-    pr = pr.reshape(-1, 3)
+    pr = _unpack(pr)
     for w in range(n_waves):
         upd = {}
         for t in range(fw[w], fw[w + 1]):
@@ -211,7 +239,7 @@ def _walk_forward(sec, n_waves, m):
 def _walk_reverse(sec, n_waves, m, dm):
     dm = dm.copy()
     rw, nd, seg, ent = (sec[k] for k in ("rev_wave", "rev_node", "rev_seg", "rev_ent"))
-    ent = ent.reshape(-1, 3)
+    ent = _unpack(ent)
     for w in range(n_waves - 1, -1, -1):
         upd = {}
         for t in range(rw[w], rw[w + 1]):
@@ -231,15 +259,15 @@ def test_dag_tables_reproduce_contract_dag_and_its_vjp(level):
     from mtp_tpu_torch.io.basis_gen import make_mtp
     from mtp_tpu_torch.models.mtp import MTPModel
 
-    tm = MTPModel.from_data(make_mtp(level, seed=2), dtype=torch.float64)
+    tm = MTPModel.from_data(make_mtp(level, seed=2), device="cpu", dtype=torch.float64)
     s = tm.schedule
     tables = build_tables(s, "cpu")
-    assert int(tables.tab[0]) == 9  # header length of csrc/fused_moments.cu
+    assert int(tables.tab[0]) == 10  # header length of csrc/fused_moments.cu
     rng = np.random.default_rng(level)
     mb = rng.normal(size=s.basic_count) * 0.5
     m0 = np.zeros(s.alpha_moments_count)
     m0[: s.basic_count] = mb
-    sec = _sections(tables.tab)
+    sec = _sections(tables)
     m_walk = _walk_forward(sec, tables.n_waves, m0)
     mb_t = _t(mb[None]).requires_grad_(True)
     m_ref = moments.contract_dag(s, mb_t)
@@ -293,22 +321,216 @@ def test_cpu_wrappers_never_launch_kernels(mega_case, jitter_box):
 
 
 def test_table_sections_match_the_cuda_header():
-    """The int32 table's section order is declared twice, in Python and in
-    the kernel's enum; they must agree."""
+    """The int32 table's section order and the specialised shapes are
+    declared twice, in Python and in the kernel source; they must agree, and
+    the int2 sections must sit at even offsets."""
     import os
     import re
 
-    from mtp_tpu_torch.ops.fused_moments import _SECTIONS
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.ops.fused_moments import _PACKED, _SECTIONS, SHAPES
 
     src = open(os.path.join(os.path.dirname(__file__), "..", "mtp_tpu_torch", "csrc",
                             "fused_moments.cu")).read()
     enum = re.search(r"enum \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"k(\w+) = (\d+)", enum)
-    want = ["Basic", "FwdWave", "FwdTarget", "FwdSeg", "FwdProd",
+    want = ["Basic", "ShellMap", "FwdWave", "FwdTarget", "FwdSeg", "FwdProd",
             "RevWave", "RevNode", "RevSeg", "RevEnt"]
     assert [n for n, _ in names] == want
     assert [int(v) for _, v in names] == list(range(len(_SECTIONS)))
     assert [s.replace("_", "").lower() for s in _SECTIONS] == [w.lower() for w in want]
+    macro = re.search(r"#define MTP_SHAPES\(X\)(.*?)\n\n", src, re.S).group(1)
+    shapes = {int(i): tuple(int(r) for r in rs.split(","))
+              for i, rs in re.findall(r"X\((\d+), ([\d, ]+)\)", macro)}
+    assert shapes == SHAPES
+    for level in (8, 16):
+        tm = MTPModel.from_data(make_mtp(level, seed=0), device="cpu")
+        header = tm.tables.tab[: len(_SECTIONS)].numpy()
+        assert all(header[_SECTIONS.index(k)] % 2 == 0 for k in _PACKED)
+        assert tm.tables.shape == {8: 1, 16: 2}[level]
+        _sections(tm.tables)
+
+
+def _mono_cuda(t):
+    """Monomial t as csrc/fused_moments.cu computes it (`mono_rank`,
+    `mono_ax`, `mono_ay`), line for line."""
+    r = 0
+    while _n_mono(r) <= t:
+        r += 1
+    q, ax = t - _n_mono(r - 1), r
+    while q > r - ax:
+        q -= r - ax + 1
+        ax -= 1
+    ay = r - ax - q
+    return ax, ay, r - ax - ay
+
+
+def _n_mono(r):
+    return 0 if r < 0 else (r + 1) * (r + 2) * (r + 3) // 6
+
+
+def test_monomial_order_is_the_kernels():
+    """`monomials` lists what the kernel's compile-time loops enumerate, and
+    each rank-r prefix is every monomial of rank <= r once."""
+    from mtp_tpu_torch.ops.fused_moments import monomials
+
+    for rmax in range(9):
+        got = monomials(rmax)
+        assert got == [_mono_cuda(t) for t in range(_n_mono(rmax))]
+        assert len(set(got)) == len(got) == _n_mono(rmax)
+        assert all(sum(m) <= rmax for m in got)
+
+
+def _kernel_terms(tables):
+    """(mu, ax, ay, az, k) of every term in the order the kernel visits it:
+    a specialised shape loops over monomials t, then radial functions mu
+    whose shell holds t, at canonical term c = off(mu) + t, schedule row
+    shell_map[c]; the General instantiation walks the basic table."""
+    from mtp_tpu_torch.ops.fused_moments import SHAPES
+
+    sec = _sections(tables)
+    if tables.shape == 0:
+        return [(*row, k) for k, row in enumerate(sec["basic"].reshape(-1, 4).tolist())]
+    ranks = SHAPES[tables.shape]
+    off = np.concatenate([[0], np.cumsum([_n_mono(r) for r in ranks])])
+    terms = []
+    for t in range(_n_mono(max(ranks))):
+        ax, ay, az = _mono_cuda(t)
+        for mu, r in enumerate(ranks):
+            if ax + ay + az <= r:
+                terms.append((mu, ax, ay, az, int(sec["shell_map"][off[mu] + t])))
+    return terms
+
+
+def _pair_stage(sched, radial, dispT, mask, it, jt):
+    """The per-pair stage of the kernels over the live slots (mask > 0):
+    slot and atom of each, w, 1/d, u, f_mu, f'_mu (P, MU) and the unit-vector
+    powers (3, R+1, P)."""
+    s_idx, i_idx = np.nonzero(mask > 0)
+    x, y, z = (dispT[a, s_idx, i_idx] for a in range(3))
+    w = mask[s_idx, i_idx]
+    d = np.sqrt(x * x + y * y + z * z)
+    inv_d = 1.0 / d
+    u = np.stack([x, y, z]) * inv_d
+    lo, hi, sc = sched.min_dist, sched.max_dist, sched.scaling
+    ksi = (2.0 * d - (lo + hi)) / (hi - lo)
+    mult_c, dh = 2.0 / (hi - lo), d - hi
+    v = [sc * dh * dh, ksi * sc * dh * dh]
+    g = [sc * 2.0 * dh, sc * (mult_c * dh * dh + 2.0 * ksi * dh)]
+    for r in range(2, sched.radial_basis_size):
+        v.append(2.0 * ksi * v[-1] - v[-2])
+        g.append(2.0 * (mult_c * v[-2] + ksi * g[-1]) - g[-2])
+    c = radial[it[i_idx], jt[s_idx, i_idx]]  # (P, MU, RB)
+    f = np.einsum("pmr,rp->pm", c, np.array(v))
+    fp = np.einsum("pmr,rp->pm", c, np.array(g))
+    pw = np.stack([u ** e for e in range(sched.max_rank + 1)], axis=1)  # (3, R+1, P)
+    return s_idx, i_idx, w, inv_d, u, f, fp, pw
+
+
+def _walk_basic(tables, radial, dispT, mask, it, jt):
+    """K6 as the kernel indexes its terms: (B, N)."""
+    _, i_idx, w, _, _, f, _, pw = _pair_stage(tables.sched, radial, dispT, mask, it, jt)
+    out = np.zeros((tables.sched.basic_count, dispT.shape[2]))
+    for mu, ax, ay, az, k in _kernel_terms(tables):
+        np.add.at(out[k], i_idx, (f[:, mu] * w) * (pw[0, ax] * (pw[1, ay] * pw[2, az])))
+    return out
+
+
+def _walk_tail(tables, radial, dispT, mask, it, jt, gamma):
+    """The force tail from gamma (B, N) as the kernel runs it: by monomial
+    (G_t, G'_t; T = w (u (P - Q/d) + D/d)) for a specialised shape, by term
+    (`_pair_force_terms`) for the General one. (3, J, N)."""
+    s_idx, i_idx, w, inv_d, u, f, fp, pw = _pair_stage(tables.sched, radial, dispT, mask, it, jt)
+    g = gamma[:, i_idx]  # (B, P)
+    P = np.zeros_like(w)
+    Q = np.zeros_like(w)
+    D = np.zeros((3,) + w.shape)
+    terms = _kernel_terms(tables)
+    if tables.shape:
+        by_mono = {}
+        for mu, ax, ay, az, k in terms:
+            by_mono.setdefault((ax, ay, az), []).append((mu, k))
+        for a, mus in by_mono.items():
+            G = sum(g[k] * f[:, mu] for mu, k in mus)
+            Gp = sum(g[k] * fp[:, mu] for mu, k in mus)
+            U = pw[0, a[0]] * pw[1, a[1]] * pw[2, a[2]]
+            P += Gp * U
+            Q += sum(a) * G * U
+            for c in range(3):
+                if a[c]:
+                    lower = list(a)
+                    lower[c] -= 1
+                    D[c] += G * a[c] * (pw[0, lower[0]] * pw[1, lower[1]] * pw[2, lower[2]])
+        T = (u * (P - Q * inv_d) + D * inv_d) * w
+    else:
+        for mu, ax, ay, az, k in terms:
+            rank = ax + ay + az
+            W2 = f[:, mu] * inv_d
+            W1 = fp[:, mu] - rank * W2
+            a = (ax, ay, az)
+            U = pw[0, ax] * pw[1, ay] * pw[2, az]
+            P += g[k] * W1 * U
+            for c in range(3):
+                if a[c]:
+                    lower = list(a)
+                    lower[c] -= 1
+                    D[c] += g[k] * W2 * a[c] * (pw[0, lower[0]] * pw[1, lower[1]] * pw[2, lower[2]])
+        T = (u * P + D) * w
+    out = np.zeros_like(dispT)
+    out[:, s_idx, i_idx] = T
+    return out
+
+
+def _walk_case(level, species, path):
+    import dataclasses as dc
+
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.models.mtp import MTPModel
+
+    tm = MTPModel.from_data(make_mtp(level, species_count=species, seed=4), device="cpu",
+                            dtype=torch.float64)
+    tables = tm.tables if path == "specialised" else dc.replace(tm.tables, shape=0)
+    assert tables.shape == {"specialised": {8: 1, 16: 2}[level], "general": 0}[path]
+    dispT, mask, it, jt = _random_pairs(np.random.default_rng(level + species), 48, 64, species)
+    return tm, tables, dispT, mask, it, jt
+
+
+WALKS = [(lv, sp, path) for lv in (8, 16) for sp in (1, 2) for path in ("specialised", "general")]
+
+
+@pytest.mark.parametrize("level,species,path", WALKS)
+def test_term_tables_reproduce_basic_moments(level, species, path):
+    """The basic stage walked as the kernel indexes its terms gives
+    moments.basic_moments in float64."""
+    tm, tables, dispT, mask, it, jt = _walk_case(level, species, path)
+    rc = tm.coeffs.radial_coeffs
+    got = _walk_basic(tables, rc.numpy(), dispT, mask, it, jt)
+    want, _ = moments.basic_moments(
+        tm.schedule, tm.coeffs, _t(dispT).permute(2, 1, 0), _t(mask > 0).T,
+        _t(it).long(), _t(jt).T.long(),
+    )
+    np.testing.assert_allclose(got, want.numpy().T, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("level,species,path", WALKS)
+def test_term_tables_reproduce_the_autograd_force_tail(level, species, path):
+    """The whole K2 chain walked as the kernels run it (basic stage, DAG
+    tables forward and back, the force tail by monomial or by term) gives
+    pair_forces_mega_plain's autograd pair forces in float64."""
+    tm, tables, dispT, mask, it, jt = _walk_case(level, species, path)
+    s = tm.schedule
+    rc = tm.coeffs.radial_coeffs
+    xi = readout_vector(tm).numpy()
+    sec = _sections(tables)
+    m0 = np.zeros((s.alpha_moments_count, dispT.shape[2]))
+    m0[: s.basic_count] = _walk_basic(tables, rc.numpy(), dispT, mask, it, jt)
+    m = _walk_forward(sec, tables.n_waves, m0)
+    dm = _walk_reverse(sec, tables.n_waves, m, np.repeat(xi[:, None], m.shape[1], axis=1))
+    got = _walk_tail(tables, rc.numpy(), dispT, mask, it, jt, dm[: s.basic_count])
+    want = pair_forces_mega(tables, _t(dispT), _t(mask), _t(it, torch.int32),
+                            _t(jt, torch.int32), rc, readout_vector(tm)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_fused_kernel_operands_must_match_the_schedule():
@@ -320,8 +542,8 @@ def test_fused_kernel_operands_must_match_the_schedule():
     from mtp_tpu_torch.ops.fused_moments import _check
 
     f32 = torch.float32
-    two = MTPModel.from_data(make_mtp(8, species_count=2, seed=2), dtype=f32)
-    one = MTPModel.from_data(make_mtp(8, species_count=1, seed=2), dtype=f32)
+    two = MTPModel.from_data(make_mtp(8, species_count=2, seed=2), device="cpu", dtype=f32)
+    one = MTPModel.from_data(make_mtp(8, species_count=1, seed=2), device="cpu", dtype=f32)
     n, j = 8, 4
     ops = dict(
         dispT=torch.zeros((3, j, n), dtype=f32), mask=torch.zeros((j, n), dtype=f32),
@@ -372,7 +594,7 @@ def al_case(mtp_level8_2spec):
     from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape as grid_t
 
     jm = JaxModel.from_data(mtp_level8_2spec, dtype=jnp.float64)
-    tm = model_from_jax(jm, dtype=torch.float64)
+    tm = model_from_jax(jm, device="cpu", dtype=torch.float64)
     pos, types, cell = lattice_t("fcc", 4.0, (4, 4, 4), type_pattern=(0, 1))
     assert min(grid_t(cell, tm.cutoff)) >= 3
     pos = pos + np.random.default_rng(4).normal(0, 0.1, pos.shape)

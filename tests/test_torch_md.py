@@ -53,8 +53,8 @@ def test_nve_trajectory_matches_jax(alloy):
     sj, _, fj = sim_j.run_async(sj, 20, ensemble="nve", dt=0.001)
     assert not bool(fj)
 
-    model = model_from_jax(jm, dtype=F64)
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    model = model_from_jax(jm, device="cpu", dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
                      compute_virial=False)
     st, _, fl = sim.run_async(st, 20, dt=0.001)
@@ -72,10 +72,10 @@ def test_nve_conserves_energy(alloy):
     measured on this box is ~1.6e-6 eV/atom peak to peak."""
     jm, pos, types, _, cell, vel = alloy
     masses = np.full(len(pos), 58.693)
-    model = model_from_jax(jm, dtype=F64)
+    model = model_from_jax(jm, device="cpu", dtype=F64)
     sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=5,
                      compute_virial=False)
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     energies = []
     refresh = True
     for _ in range(12):
@@ -89,7 +89,7 @@ def test_nve_conserves_energy(alloy):
 
 def test_thermalize_sets_temperature_and_zero_momentum(alloy):
     _, pos, types, masses, cell, _ = alloy
-    st = init_state(pos, types, masses, cell, dtype=F64)
+    st = init_state(pos, types, masses, cell, dtype=F64, device="cpu")
     st = thermalize(torch.Generator().manual_seed(0), st, 300.0)
     assert abs(float(temperature_of(st)) - 300.0) < 1e-9
     p = (st.velocities * st.masses[:, None]).sum(0)
@@ -100,13 +100,13 @@ def test_thermalize_sets_temperature_and_zero_momentum(alloy):
 
 def test_flags_report_overflow_and_staleness_apart(alloy):
     jm, pos, types, masses, cell, vel = alloy
-    model = model_from_jax(jm, dtype=F64)
-    st = init_state(pos, types, masses, cell, velocities=vel * 40.0, dtype=F64)
+    model = model_from_jax(jm, device="cpu", dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel * 40.0, dtype=F64, device="cpu")
     hot = Simulation(model, max_neighbors=64, skin=0.1, steps_per_rebuild=5)
     _, _, fl = hot.run_async(st, 5, dt=0.001)
     assert bool(fl.stale) and not bool(fl.overflow) and bool(fl)
     narrow = Simulation(model, max_neighbors=24, skin=0.6, steps_per_rebuild=2)
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     _, _, fl = narrow.run_async(st, 2, dt=0.001)
     assert bool(fl.overflow) and not bool(fl.stale)
     clear = RunFlags(overflow=torch.tensor(False), stale=torch.tensor(False))
@@ -118,10 +118,10 @@ def test_run_async_returns_the_last_list_and_permutes_back(alloy):
     user order: types and masses come back unchanged; the returned list is
     the final block's."""
     jm, pos, types, masses, cell, vel = alloy
-    model = model_from_jax(jm, dtype=F64)
+    model = model_from_jax(jm, device="cpu", dtype=F64)
     sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=3,
                      compute_virial=False)
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     out, aux, fl, nl = sim.run_async(st, 4, dt=0.001, return_nl=True)
     assert aux is None and not bool(fl)
     assert torch.equal(out.types, st.types) and torch.equal(out.masses, st.masses)
@@ -133,9 +133,9 @@ def test_run_async_returns_the_last_list_and_permutes_back(alloy):
 
 def test_cpu_run_launches_no_kernel(alloy):
     jm, pos, types, masses, cell, vel = alloy
-    model = model_from_jax(jm, dtype=F64)
+    model = model_from_jax(jm, device="cpu", dtype=F64)
     sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=2)
-    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64)
+    st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
     sim.run_async(st, 2, dt=0.001)
     assert all(k.launches == 0 for k in main_path_kernels())
 

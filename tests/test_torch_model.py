@@ -70,7 +70,7 @@ def _assert_close(out, ref):
 
 def test_plain_path_matches_golden_and_jax_xla(case):
     m, pos, types, cell, g = case
-    model = MTPModel.from_data(m, dtype=torch.float64)
+    model = MTPModel.from_data(m, device="cpu", dtype=torch.float64)
     nl, _ = _lists(m, pos, cell)
     out = mtp_energy_forces(model, _t(pos), _t(types, torch.int32), nl.idx, _t(cell), nl.mirror)
     out = {k: v.numpy() for k, v in out.items()}
@@ -90,7 +90,7 @@ def test_window_path_matches_golden(case):
     order and in sorted space, with and without the energy kernel."""
     m, pos, types, cell, g = case
     jm = JaxModel.from_data(m, dtype=jnp.float64)
-    model = model_from_jax(jm, dtype=torch.float64)
+    model = model_from_jax(jm, device="cpu", dtype=torch.float64)
     _, swl = _lists(m, pos, cell)
     ty = _t(types, torch.int32)
     consts = window_constants(model, ty, swl)
@@ -115,8 +115,8 @@ def test_model_load_and_fp32(tmp_path):
     m = make_mtp(8, species_count=2, seed=3)
     path = str(tmp_path / "p.mtp")
     save_mtp(path, m)
-    a = MTPModel.load(path, dtype=torch.float32)
-    b = MTPModel.from_data(m, dtype=torch.float32)
+    a = MTPModel.load(path, device="cpu", dtype=torch.float32)
+    b = MTPModel.from_data(m, device="cpu", dtype=torch.float32)
     assert a.dtype == torch.float32 and a.device == torch.device("cpu")
     for name in ("radial_coeffs", "species_coeffs", "moment_coeffs"):
         ta, tb = getattr(a.coeffs, name), getattr(b.coeffs, name)
@@ -140,13 +140,40 @@ def test_mvs_state_survives_loading(tmp_path, energy_weight):
     path = str(tmp_path / "al.mtp")
     save_mtp(path, m)
     jm = JaxModel.load(path, dtype=jnp.float64)
-    for tm in (MTPModel.load(path, dtype=torch.float64), model_from_jax(jm)):
+    cpu = dict(device="cpu")
+    for tm in (MTPModel.load(path, **cpu, dtype=torch.float64), model_from_jax(jm, **cpu)):
         assert tm.configuration_mode is jm.configuration_mode is bool(energy_weight)
         assert isinstance(tm.active_set, np.ndarray)
         np.testing.assert_array_equal(tm.active_set, jm.active_set)
         inv = tm.inverse_active_set
         assert inv.dtype == torch.float64 and inv.device == tm.device
         np.testing.assert_allclose(inv.numpy(), np.asarray(jm.inverse_active_set), rtol=0, atol=1e-15)
-    plain = MTPModel.from_data(make_mtp(8, seed=0))
+    plain = MTPModel.from_data(make_mtp(8, seed=0), device="cpu")
     assert plain.inverse_active_set is None and plain.active_set is None
     assert not plain.configuration_mode
+
+
+@pytest.mark.parametrize("entry", ["from_data", "load", "init_state", "model_from_jax"])
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """The port's entry points take device="cuda" by default; with no CUDA
+    device a default call raises instead of falling back to the CPU."""
+    import inspect
+
+    from mtp_tpu_torch.md.state import init_state
+
+    m = make_mtp(8, seed=0)
+    path = str(tmp_path / "p.mtp")
+    save_mtp(path, m)
+    pos, types, cell = make_lattice("fcc", 4.0, (2, 2, 2))
+    fn, call = {
+        "from_data": (MTPModel.from_data, lambda: MTPModel.from_data(m)),
+        "load": (MTPModel.load, lambda: MTPModel.load(path)),
+        "init_state": (init_state, lambda: init_state(pos, types, np.ones(len(pos)), cell)),
+        "model_from_jax": (
+            model_from_jax, lambda: model_from_jax(JaxModel.from_data(m, dtype=jnp.float64))
+        ),
+    }[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
