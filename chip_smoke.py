@@ -9,9 +9,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device: name, ``nvidia-smi`` name and power limit, TF32 pinned off.
 2. Build: nvcc builds the seven CUDA kernels from ``mtp_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on an 864-atom two-species
-   level-16 fcc box (positions jittered from a seed), in fp32 on the card;
-   then the fp32 kernel path against the port's float64 plain path on the
-   card (dE/atom < 1e-6 eV, max|dF| < 5e-4 eV/A, max|dW| < 5e-2 eV).
+   level-16 fcc box (positions jittered from a seed), in fp32 on the card
+   (K1's displacements and mask bit for bit); then the fp32 kernel path
+   against the port's float64 plain path on the card (dE/atom < 1e-6 eV,
+   max|dF| < 5e-4 eV/A, max|dW| < 5e-2 eV).
 4. Main path: the ``bench.py`` configuration (level 16, 32,000 atoms, fp32,
    J = 64, skin 0.6): 60 NVE steps at steps_per_rebuild=10, then a timed
    ``run_async`` of 210 steps at steps_per_rebuild=30. Both flags clear,
@@ -63,9 +64,10 @@ SEED = 0
 # kernel vs plain version, fp32 on the card. The two sum in another order;
 # the measured fp32-vs-float64 noise of the plain path at level 16 is ~5e-7 eV
 # (site energies), ~1.2e-6 eV/A (pair forces), ~4e-6 eV/A (forces). K1 does the
-# plain version's IEEE operations in its order, so it is expected exact.
+# plain version's IEEE operations in its order, so its displacements (A) and
+# mask must be bit-equal.
 TOL = {
-    "window_disp": 1e-5,  # A
+    "window_disp": 0.0,
     "pair_forces_mega": 5e-5,  # eV/A
     "window_giveback": 1e-5,  # eV/A (same pair_T input; only the sum order differs)
     "site_energies_mega": 1e-5,  # eV
@@ -138,9 +140,13 @@ def kernel_work(name, model, n, j, live):
     5). K1 and K3 are elementwise."""
     from mtp_tpu_torch.ops.fused_moments import monomials
 
-    if name == "window_disp":  # 3 subtractions, two 3x3 products, rint
-        return 39 * j * n, 12 * n + 4 * j * n + 72 + 12 * j * n
-    if name == "window_giveback":  # T(own) - T(mirror), summed
+    if name == "window_disp":
+        # per pair: 3 subtractions, two 3x3 products, 3 rint and subtractions,
+        # |d|^2 and the test; per call the closed-form inverse. Reads
+        # positions, idx_t, pair_valid_t (1 byte) and the cell; writes dispT
+        # and maskf
+        return 45 * j * n + 41, 12 * n + 4 * j * n + j * n + 36 + 12 * j * n + 4 * j * n
+    if name == "window_giveback":  # T(own) - T(mirror), summed; pair_T, mirror_t, forces
         return 6 * j * n, 12 * j * n + 4 * j * n + 12 * n
     s = model.schedule
     B, M, MU, RB = (s.basic_count, s.alpha_moments_count, s.radial_funcs_count,
@@ -191,15 +197,13 @@ def kernel_row(kern, launches, err, ms, plain_ms, model, n, j, live):
 
 
 def kernel_inputs(model, state_pos, cell, types, swl):
-    """Sorted positions, the window constants and the kernels' inputs."""
-    from mtp_tpu_torch.models.mtp import window_constants
-    from mtp_tpu_torch.ops.window_disp import window_disp
+    """Sorted positions, the window constants and the kernels' inputs, the
+    geometry from the force path's own preamble (K1)."""
+    from mtp_tpu_torch.models.mtp import _window_geometry, window_constants
 
     k = window_constants(model, types, swl)
     pos_s = state_pos[swl.order].contiguous()
-    dispT = window_disp(pos_s, swl.idx, cell)
-    d2 = dispT[0] * dispT[0] + dispT[1] * dispT[1] + dispT[2] * dispT[2]
-    mask = ((d2 <= model.cutoff**2) & k["pair_valid_t"]).to(pos_s.dtype)
+    dispT, mask = _window_geometry(model, pos_s, cell, swl, k["idx_t"], k["pair_valid_t"], True)
     args = (model.tables, dispT, mask, k["it_row"], k["jtypes_t"],
             model.coeffs.radial_coeffs, k["xi_full"])
     return pos_s, k, args
@@ -212,6 +216,7 @@ def compare_kernels(model, pos, cell, types, swl, timing):
     `timing`."""
     import torch
 
+    from mtp_tpu_torch.models.mtp import _window_geometry
     from mtp_tpu_torch.ops import fused_basic as fb
     from mtp_tpu_torch.ops import fused_moments as fm
     from mtp_tpu_torch.ops import window_disp as wd
@@ -219,18 +224,19 @@ def compare_kernels(model, pos, cell, types, swl, timing):
 
     pos_s, k, args = kernel_inputs(model, pos, cell, types, swl)
     pair_T = fm.pair_forces_mega(*args)
+    geo = (pos_s, k["idx_t"], cell, k["pair_valid_t"], model.cutoff)
     calls = {
         "window_disp": (
-            lambda: wd.window_disp(pos_s, swl.idx, cell),
-            lambda: wd.window_disp_plain(pos_s, swl.idx, cell),
+            lambda: wd.window_geometry(*geo),
+            lambda: wd.window_geometry_plain(*geo),
         ),
         "pair_forces_mega": (
             lambda: fm.pair_forces_mega(*args),
             lambda: fm.pair_forces_mega_plain(*args),
         ),
         "window_giveback": (
-            lambda: wg.window_giveback(pair_T, swl.mirror),
-            lambda: wg.window_giveback_plain(pair_T, swl.mirror),
+            lambda: wg.window_giveback(pair_T, k["mirror_t"]),
+            lambda: wg.window_giveback_plain(pair_T, k["mirror_t"]),
         ),
         "site_energies_mega": (
             lambda: fm.site_energies_mega(*args, k["esp"]),
@@ -241,9 +247,13 @@ def compare_kernels(model, pos, cell, types, swl, timing):
     for name, (kern, plain) in calls.items():
         got, want = kern(), plain()
         torch_sync()
-        check(bool(got.isfinite().all()), f"{name}: non-finite kernel output")
-        err = max_err(got, want)
-        print(f"  {name}: max|kernel - plain| = {err:.3e} (tol {TOL[name]:.0e})")
+        # K1 returns (dispT, maskf): every output is held to the tolerance
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(all(bool(g.isfinite().all()) for g in got), f"{name}: non-finite kernel output")
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        err = max(errs)
+        print(f"  {name}: max|kernel - plain| = {' and '.join(f'{e:.3e}' for e in errs)} "
+              f"(tol {TOL[name]:.0e})")
         check(err <= TOL[name], f"{name} disagrees with its plain version")
         ms = plain_ms = None
         if timing:
@@ -261,8 +271,10 @@ def compare_kernels(model, pos, cell, types, swl, timing):
             "basic_moments_fused": lambda: fb.basic_moments_fused(*args[:6]),
             "basic_moments_vjp": lambda: fb.basic_moments_vjp(*args[:6], gamma),
             "candidates_mega": lambda: fc.candidates_mega(*args, k["esp"]),
-            "window_disp": lambda: wd.window_disp(pos_s, swl.idx, cell),
-            "window_giveback": lambda: wg.window_giveback(pair_T, swl.mirror),
+            # everything the force path's geometry does on the device
+            "window_disp": lambda: _window_geometry(model, pos_s, cell, swl, k["idx_t"],
+                                                    k["pair_valid_t"], True),
+            "window_giveback": lambda: wg.window_giveback(pair_T, k["mirror_t"]),
         }
     return out, float(args[2].sum()), stage_calls
 
@@ -296,8 +308,10 @@ def stage_ms(calls, reps=10):
                 continue
             m = re.search(r"pair_kernel<.*, (\d)>\(", evt.key)
             d = re.search(r"dag_kernel<(\d)", evt.key)
+            k = re.search(r"(\w+(<[^()]*>)?)\(", evt.key)  # a kernel's name, template included
             name = (_STAGES["pair_kernel"][int(m.group(1))] if m else
-                    _STAGES["dag_kernel"][int(d.group(1))] if d else evt.key.split("(")[0][-40:])
+                    _STAGES["dag_kernel"][int(d.group(1))] if d else
+                    k.group(1)[-40:] if k else evt.key[:40])
             per[name] = per.get(name, 0.0) + us / reps / 1e3
         out[label] = per
     return out
@@ -568,13 +582,13 @@ def al_path_phase(dev, card):
     d = args[1].clone().requires_grad_(True)
     e = site_energies_fused(model.tables, model.coeffs, d, *args[2:5])
     (pair,) = torch.autograd.grad(e.sum(), d)
-    f_mod = window_giveback(pair, nl.mirror)
+    f_mod = window_giveback(pair, k["mirror_t"])
     torch_sync()
     mod = {k_.name: k_.launches for k_ in kernels}
     print(f"[7 modular path] launches {mod}")
     for name in ("basic_moments_fused", "basic_moments_vjp"):
         check(mod[name] == 1, f"{name} was not launched on the modular path")
-    f_main = window_giveback(fm.pair_forces_mega(*args), nl.mirror)
+    f_main = window_giveback(fm.pair_forces_mega(*args), k["mirror_t"])
     e_main = fm.site_energies_mega(*args, k["esp"])
     dfm, dem = max_err(f_mod, f_main), max_err(e.detach(), e_main)
     print(f"[7 modular path] vs the fused path: max|dF|={dfm:.3e} max|de|={dem:.3e}")

@@ -103,10 +103,11 @@ def candidates_and_forces(model, positions, types, nbr_idx, cell, nbr_mirror):
 
 
 def candidates_and_forces_window(
-    model, positions, cell, swl, *, it_row, jtypes_t, pair_valid_t, esp, xi_full,
+    model, positions, cell, swl, *, it_row, jtypes_t, idx_t, pair_valid_t, mirror_t, esp,
+    xi_full,
 ):
-    """Grade-step fusion through the window path: K1 displacements, ONE K5
-    launch for site energies, basis members, radial rows and pair forces,
+    """Grade-step fusion through the window path: K1 displacements and
+    mask, ONE K5 launch for site energies, basis members, radial rows and pair forces,
     and the K3 give-back.
 
     `positions` are USER order; the (J, N)/(N,) arrays are the rebuild
@@ -115,11 +116,12 @@ def candidates_and_forces_window(
     ``swl.inv_order``; site_energies (N,), forces (N, 3), both user order;
     energy; virial (6,)).
     """
-    dispT, maskf = _window_geometry(model, positions, cell, swl, pair_valid_t, sorted_io=False)
+    dispT, maskf = _window_geometry(model, positions, cell, swl, idx_t, pair_valid_t,
+                                    sorted_io=False)
     out = candidates_mega(
         model.tables, dispT, maskf, it_row, jtypes_t, model.coeffs.radial_coeffs, xi_full, esp,
     )
-    forces = window_giveback(out["pair_tT"], swl.mirror)[swl.inv_order]
+    forces = window_giveback(out["pair_tT"], mirror_t)[swl.inv_order]
     b = _place_blocks(out["rad"], it_row, out["basis_members"], model.schedule.species_count)
     # global virial from the transposed layouts, as the force path tallies it
     virial = _virial_from_pairs(out["pair_tT"], dispT * maskf[None])

@@ -31,8 +31,8 @@ from mtp_tpu_torch.ops.fused_moments import (
     site_energies_mega,
 )
 from mtp_tpu_torch.ops.moments import MTPSchedule, energy_and_pair_forces
-from mtp_tpu_torch.ops.window_disp import inverse_cell, minimum_image, window_disp
-from mtp_tpu_torch.ops.window_giveback import window_giveback
+from mtp_tpu_torch.ops.window_disp import inverse_cell, minimum_image, window_geometry
+from mtp_tpu_torch.ops.window_giveback import mirror_offsets, window_giveback
 from mtp_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -188,17 +188,16 @@ def mtp_energy_forces(
 # ----------------------------------------------------------------------
 
 
-def _window_geometry(model, positions, cell, swl, pair_valid_t, sorted_io):
+def _window_geometry(model, positions, cell, swl, idx_t, pair_valid_t, sorted_io):
     """Shared preamble of the window evaluators: sorted positions -> K1
-    displacements -> the distance and validity mask. ONE implementation, so
-    the force and energy paths see the same mask.
+    displacements and the distance and validity mask, one launch on the card.
+    ONE implementation, so the force, energy and grade paths see the same
+    mask.
 
     Returns (dispT (3, J, N), maskf (J, N))."""
     pos_s = positions if sorted_io else positions[swl.order]
-    dispT = window_disp(pos_s.contiguous(), swl.idx, cell)
-    d2 = dispT[0] * dispT[0] + dispT[1] * dispT[1] + dispT[2] * dispT[2]
-    maskf = ((d2 <= model.schedule.max_dist**2) & pair_valid_t).to(positions.dtype)
-    return dispT, maskf
+    return window_geometry(pos_s.contiguous(), idx_t, cell, pair_valid_t,
+                           model.schedule.max_dist)
 
 
 def mtp_energy_forces_window(
@@ -209,7 +208,9 @@ def mtp_energy_forces_window(
     *,
     it_row,
     jtypes_t,
+    idx_t,
     pair_valid_t,
+    mirror_t,
     esp,
     xi_full,
     compute_virial: bool = True,
@@ -230,7 +231,7 @@ def mtp_energy_forces_window(
     """
     n = positions.shape[0]
     rc = model.coeffs.radial_coeffs
-    dispT, maskf = _window_geometry(model, positions, cell, swl, pair_valid_t, sorted_io)
+    dispT, maskf = _window_geometry(model, positions, cell, swl, idx_t, pair_valid_t, sorted_io)
     args = (model.tables, dispT, maskf, it_row, jtypes_t, rc, xi_full)
     if compute_energy:
         with torch.enable_grad():
@@ -241,7 +242,7 @@ def mtp_energy_forces_window(
     else:
         site_e = torch.zeros(n, dtype=positions.dtype, device=positions.device)
         pair_tT = pair_forces_mega(*args)
-    forces = window_giveback(pair_tT, swl.mirror)
+    forces = window_giveback(pair_tT, mirror_t)
     if not sorted_io:
         forces = forces[swl.inv_order]
         site_e = site_e[swl.inv_order]
@@ -261,14 +262,18 @@ def mtp_energy_window(
     *,
     it_row,
     jtypes_t,
+    idx_t,
     pair_valid_t,
+    mirror_t,
     esp,
     xi_full,
     sorted_io: bool = False,
 ):
     """Total potential energy only (K4): the block-boundary companion of
-    ``mtp_energy_forces_window(compute_energy=False)``."""
-    dispT, maskf = _window_geometry(model, positions, cell, swl, pair_valid_t, sorted_io)
+    ``mtp_energy_forces_window(compute_energy=False)``. `mirror_t` is
+    accepted and unused, so both evaluators take :func:`window_constants`
+    whole."""
+    dispT, maskf = _window_geometry(model, positions, cell, swl, idx_t, pair_valid_t, sorted_io)
     site_e = site_energies_mega(
         model.tables, dispT, maskf, it_row, jtypes_t, model.coeffs.radial_coeffs,
         xi_full, esp,
@@ -278,15 +283,19 @@ def mtp_energy_window(
 
 def window_constants(model: MTPModel, types, swl):
     """Rebuild-constant arrays of the window path: center types (N,),
-    neighbor types (J, N), the non-self-pair mask (J, N), per-atom species
-    energies (N,) and the readout vector (M,). `types` is in user order."""
+    neighbor types (J, N), the transposed list (J, N) int32 (K1 reads it
+    coalesced), the non-self-pair mask (J, N), the mirror offsets (J, N)
+    int32 of K3, per-atom species energies (N,) and the readout vector (M,).
+    `types` is in user order."""
     types_s = types[swl.order].to(torch.int32)
-    n = types_s.shape[0]
+    n, j = swl.idx.shape
     rows = torch.arange(n, device=swl.idx.device)
     return dict(
         it_row=types_s.contiguous(),
         jtypes_t=types_s[swl.idx.long()].T.contiguous(),
+        idx_t=swl.idx.T.contiguous(),
         pair_valid_t=(swl.idx != rows[:, None]).T.contiguous(),
+        mirror_t=mirror_offsets(swl.mirror, n, j),
         esp=model.coeffs.species_coeffs[types_s.long()].contiguous(),
         xi_full=readout_vector(model),
     )

@@ -1,12 +1,12 @@
 """Newton give-back: sorted-space forces from per-pair forces (K3).
 
 Port of ``mtp_tpu/ops/window_giveback.py`` fused with the own-slot sum of
-``mtp_tpu/models/mtp.py:404-425``: F[i] = sum_s (T[:, s, i] - T[mirror(i, s)]).
+``mtp_tpu/models/mtp.py:404-425``: F[i] = sum_s (T[:, s, i] - T[mirror(s, i)]).
 On the TPU the give-back needs octant-aligned slots (``slot_assign.py``,
 ``slot_repair.py``), band metadata (``giveback_metadata``) and a spill path,
 because Mosaic has no atomics and no general 2-D in-VMEM gather. The CUDA
-kernel (``csrc/window_giveback.cu``) reads the flat mirror permutation
-directly, so none of those are ported.
+kernel (``csrc/window_giveback.cu``) gathers the mirrored pair force through
+``mirror_t`` (:func:`mirror_offsets`), so none of those are ported.
 
 :func:`window_giveback` dispatches on the tensor's device: a CPU tensor goes
 to :func:`window_giveback_plain`, a CUDA tensor to the kernel (or it raises).
@@ -32,29 +32,37 @@ K3 = Kernel(
 )
 
 
-def window_giveback_plain(pair_T, mirror):
-    """Plain PyTorch twin of K3: the flat-mirror form of
-    ``mtp_tpu/models/mtp.py:417-425``. Masked slots of ``pair_T`` are zero and
-    padding entries mirror among themselves, so no mask is applied."""
+def mirror_offsets(mirror, n: int, j: int):
+    """mirror_t (J, N) int32 from the flat mirror permutation (N*J,) of an
+    (N, J) list: slot s of atom i mirrors slot sq of atom iq, and mirror_t[s,
+    i] = sq * N + iq, its flat offset into one (J, N) plane of pair_T
+    (3, J, N). A rebuild constant."""
+    q = mirror.long().view(n, j)
+    return ((q % j) * n + q // j).T.contiguous().to(torch.int32)
+
+
+def window_giveback_plain(pair_T, mirror_t):
+    """Plain PyTorch twin of K3: ``mtp_tpu/models/mtp.py:417-425`` on the
+    (3, J, N) layout. Masked slots of ``pair_T`` are zero and padding
+    entries mirror among themselves, so no mask is applied."""
     K3.plain_calls += 1
-    pair_t = pair_T.permute(2, 1, 0)  # (N, J, 3)
-    t_ji = pair_t.reshape(-1, 3)[mirror.long()].reshape(pair_t.shape)
-    return torch.sum(pair_t - t_ji, dim=1)  # (N, 3)
+    t_ji = pair_T.reshape(3, -1)[:, mirror_t.long()]  # (3, J, N)
+    return torch.sum(pair_T - t_ji, dim=1).T.contiguous()  # (N, 3)
 
 
-def window_giveback(pair_T, mirror):
-    """Forces (N, 3) from pair forces pair_T (3, J, N) and the flat mirror
-    permutation mirror (N*J,) int32 of the sorted-space neighbor list."""
+def window_giveback(pair_T, mirror_t):
+    """Forces (N, 3) from pair forces pair_T (3, J, N) and the mirror
+    offsets mirror_t (J, N) int32 of :func:`mirror_offsets`."""
     if pair_T.device.type == "cpu":
-        return window_giveback_plain(pair_T, mirror)
+        return window_giveback_plain(pair_T, mirror_t)
     _, j, n = pair_T.shape
-    if pair_T.dtype != torch.float32 or mirror.dtype != torch.int32:
-        raise TypeError("window_giveback kernel takes float32 pair_T and int32 mirror")
-    if mirror.shape != (n * j,) or not pair_T.is_contiguous() or not mirror.is_contiguous():
-        raise ValueError("window_giveback kernel takes contiguous (3, J, N) and (N*J,)")
+    if pair_T.dtype != torch.float32 or mirror_t.dtype != torch.int32:
+        raise TypeError("window_giveback kernel takes float32 pair_T and int32 mirror_t")
+    if mirror_t.shape != (j, n) or not pair_T.is_contiguous() or not mirror_t.is_contiguous():
+        raise ValueError("window_giveback kernel takes contiguous (3, J, N) and (J, N)")
     out = torch.empty((n, 3), dtype=torch.float32, device=pair_T.device)
     K3.launch(
-        pair_T.data_ptr(), mirror.data_ptr(), out.data_ptr(), n, j,
+        pair_T.data_ptr(), mirror_t.data_ptr(), out.data_ptr(), n, j,
         torch.cuda.current_stream(pair_T.device).cuda_stream,
     )
     return out

@@ -10,9 +10,10 @@ and measures, on one GPU:
 * the steady-state step time and atom-steps/s from the host clock between
   ``torch.cuda.synchronize()`` calls, profiler off;
 * device time by kernel name over the same number of blocks under
-  ``torch.profiler``, and the device's idle share in that traced window:
-  1 - (time in which a device event ran) / (span from the first device
-  event's start to the last one's end), both read from the one trace;
+  ``torch.profiler``, the kernels run per step, and the device's idle
+  share in that traced window: 1 - (time in which a device event ran) /
+  (span from the first device event's start to the last one's end), all
+  read from the one trace;
 * the neighbor rebuild's time (host clock, synchronised, mean of 5);
 * a Chrome trace of the profiled window, written to --out.
 
@@ -82,6 +83,11 @@ def device_window(trace_events):
     return max(e for _, e in iv) - iv[0][0], busy
 
 
+def kernel_count(trace_events) -> int:
+    """Kernels that ran on the device in one Chrome trace."""
+    return sum(1 for e in trace_events if e.get("ph") == "X" and e.get("cat") == "kernel")
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -149,7 +155,9 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "main_path_trace.json"
     prof.export_chrome_trace(str(trace_path))
-    span_us, busy_us = device_window(json.loads(trace_path.read_text())["traceEvents"])
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    span_us, busy_us = device_window(events)
+    launches = kernel_count(events) / steps
     rows = []
     for evt in prof.key_averages():
         # device-side events only (kernels, copies): a host operator's
@@ -164,8 +172,8 @@ def main(argv=None) -> int:
     print(f"prof: {card}; {n} atoms, level 16, fp32, J=64, {steps} steps")
     print(f"prof: step {step_ms:.4f} ms (profiler off), {n / step_ms * 1e3:.1f} atom-steps/s")
     print(f"prof: traced window {span_us / steps / 1e3:.4f} ms/step, device busy "
-          f"{busy_us / steps / 1e3:.4f} ms/step, idle share {idle:.4f}; "
-          f"neighbor rebuild {rebuild_ms:.4f} ms")
+          f"{busy_us / steps / 1e3:.4f} ms/step, idle share {idle:.4f}, "
+          f"{launches:.2f} kernels/step; neighbor rebuild {rebuild_ms:.4f} ms")
     print("prof: device ms/step  launches/step  kernel")
     for ms, count, key in rows[:25]:
         print(f"prof: {ms:12.5f}  {count:12.2f}  {key[:100]}")
@@ -173,6 +181,7 @@ def main(argv=None) -> int:
         "card": card, "atoms": n, "step_ms": step_ms,
         "traced_ms_per_step": span_us / steps / 1e3,
         "busy_ms_per_step": busy_us / steps / 1e3, "idle_share": idle,
+        "kernels_per_step": launches,
         "rebuild_ms": rebuild_ms,
         "kernels": [dict(name=k[:100], ms_per_step=ms, launches_per_step=c)
                     for ms, c, k in rows[:25]],

@@ -23,6 +23,7 @@ from mtp_tpu.al.driver import run_with_extrapolation as run_jax
 from mtp_tpu.al.grades import grade_eval_window as gew_jax
 from mtp_tpu.al.maxvol import build_mvs as build_mvs_jax
 from mtp_tpu.al.maxvol import maxvol_select as maxvol_jax
+from mtp_tpu.io.basis_gen import make_mtp
 from mtp_tpu.io.cfg_file import format_cfg as format_cfg_jax
 from mtp_tpu.md.simulation import Simulation as JaxSimulation
 from mtp_tpu.md.state import init_state as init_jax
@@ -59,6 +60,20 @@ F64 = torch.float64
 
 def _t(a, dtype=F64):
     return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+# This file's own potentials, minted as the conftest's session fixtures of
+# the same names are: those are shared with every test file a worker runs,
+# and several of them assign to the potential (`m.mvs = ...`), so a value
+# compared here against golden to 1e-11 must not depend on what ran before.
+@pytest.fixture(scope="module")
+def mtp_level8():
+    return make_mtp(8, species_count=1, seed=0)
+
+
+@pytest.fixture(scope="module")
+def mtp_level8_2spec():
+    return make_mtp(8, species_count=2, seed=3)
 
 
 def _box(seed, reps=(3, 3, 3), jitter=0.1, species=1):

@@ -8,9 +8,10 @@ imports jax):
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py -q
 
 Tolerances (fp32 on the card, kernel vs plain version on the same inputs):
-K1 window_disp exact (it repeats the plain version's IEEE operations in the
-same order); K4 site energies 1e-5 eV; K2 pair forces 5e-5 eV/A; K3
-give-back 1e-5 eV/A. The plain path's own fp32-vs-float64 noise at level 16
+K1 window_disp exact in displacements and mask (it repeats the plain
+version's IEEE operations in the same order); K4 site energies 1e-5 eV; K2
+pair forces 5e-5 eV/A; K3 give-back 1e-5 eV/A (the slot sums run in another
+order), and two K3 launches bit-equal. The plain path's own fp32-vs-float64 noise at level 16
 is ~5e-7 eV, ~1.2e-6 eV/A and ~4e-6 eV/A for these quantities. K5 as K4 and
 K2 for its site energies and pair forces, and 1e-5 of the largest entry for
 its basis members and radial rows (sums of up to ~60 terms of scale ~10);
@@ -26,7 +27,7 @@ from mtp_tpu_torch.io.basis_gen import make_mtp
 from mtp_tpu_torch.kernels import main_path_kernels
 from mtp_tpu_torch.md.simulation import Simulation, make_lattice
 from mtp_tpu_torch.md.state import init_state, thermalize
-from mtp_tpu_torch.models.mtp import MTPModel, window_constants
+from mtp_tpu_torch.models.mtp import MTPModel, _window_geometry, window_constants
 from mtp_tpu_torch.ops import fused_basic as fb
 from mtp_tpu_torch.ops import fused_candidates as fc
 from mtp_tpu_torch.ops import fused_moments as fm
@@ -63,9 +64,7 @@ def _case(dev, level, species, dtype=torch.float32, **mint):
 
 
 def _inputs(model, pos_s, c, swl, k):
-    dispT = wd.window_disp(pos_s, swl.idx, c)
-    d2 = dispT[0] * dispT[0] + dispT[1] * dispT[1] + dispT[2] * dispT[2]
-    mask = ((d2 <= model.cutoff**2) & k["pair_valid_t"]).to(torch.float32)
+    dispT, mask = _window_geometry(model, pos_s, c, swl, k["idx_t"], k["pair_valid_t"], True)
     return (model.tables, dispT, mask, k["it_row"], k["jtypes_t"],
             model.coeffs.radial_coeffs, k["xi_full"])
 
@@ -74,13 +73,63 @@ def _err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def test_window_disp_is_exact(dev):
-    model, pos_s, c, _, swl, _ = _case(dev, 16, 2)
-    got = wd.window_disp(pos_s, swl.idx, c)
-    want = wd.window_disp_plain(pos_s, swl.idx, c)
+def _geometry_box(dev, kind):
+    """Sorted positions, cell and list of the K1 cases: "triclinic", the
+    864-atom jittered box with b tilted along x by 0.2 of a; "at the
+    cutoff", the unjittered 256-atom fcc box of side 16 A (every fp32
+    operation of its minimum image is exact) with one atom moved to
+    (3, 4, 0) A from another across the periodic boundary, so that one pair
+    sits at exactly d = 5 A, the level-16 cutoff."""
+    if kind == "triclinic":
+        pos, _, cell = make_lattice("fcc", 4.0, (6, 6, 6))
+        tri = cell.copy()
+        tri[1, 0] = 0.2 * cell[0, 0]
+        pos = pos @ np.linalg.inv(cell) @ tri + np.random.default_rng(3).normal(0, 0.1, pos.shape)
+        cell = tri
+    else:
+        pos, _, cell = make_lattice("fcc", 4.0, (4, 4, 4))
+        a = int(np.flatnonzero((pos == [12.0, 12.0, 0.0]).all(1))[0])
+        pos[a + 1] = pos[a] + [3.0, 4.0, 0.0]  # (15, 16, 0): y on the boundary
+    p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(cell, dtype=torch.float32, device=dev)
+    swl = build_sorted_neighbor_list(p, c, 5.6, max_neighbors=64, grid=grid_shape(cell, 5.6))
+    assert not bool(swl.overflow)
+    return p[swl.order].contiguous(), c, swl
+
+
+@pytest.mark.parametrize("kind", ["triclinic", "at the cutoff"])
+def test_window_disp_is_exact(dev, kind):
+    """K1's displacements and mask are bit-equal to its plain twin's; the
+    pair at exactly the cutoff is in the mask of both."""
+    pos_s, c, swl = _geometry_box(dev, kind)
+    k = window_constants(MTPModel.from_data(make_mtp(8, seed=0), device=dev), torch.zeros(
+        pos_s.shape[0], dtype=torch.int32, device=dev), swl)
+    args = (pos_s, k["idx_t"], c, k["pair_valid_t"], 5.0)
+    launches = wd.K1.launches
+    got = wd.window_geometry(*args)
+    want = wd.window_geometry_plain(*args)
     torch.cuda.synchronize()
-    assert got.shape == (3, 64, pos_s.shape[0])
-    assert torch.equal(got, want)
+    assert wd.K1.launches == launches + 1
+    assert got[0].shape == (3, 64, pos_s.shape[0]) and got[1].shape == (64, pos_s.shape[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 20 < float(got[1].sum()) / pos_s.shape[0] < 60
+    if kind == "at the cutoff":  # the moved atom has five lattice sites at 5 A
+        at = (got[0] * got[0]).sum(0) == 25.0
+        assert int(at.sum()) == 10 and bool((got[1][at] == 1.0).all())
+
+
+def test_window_geometry_is_one_launch(dev):
+    """On the main path (sorted positions) the whole window geometry is one
+    kernel on the device: no inverse, cast or mask kernels beside K1."""
+    model, pos_s, c, _, swl, k = _case(dev, 8, 1)
+    _inputs(model, pos_s, c, swl, k)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _window_geometry(model, pos_s, c, swl, k["idx_t"], k["pair_valid_t"], True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels] == [kernels[0].name] and "window_geometry" in kernels[0].name
 
 
 @pytest.mark.parametrize("level,species", [(8, 1), (8, 2), (16, 2), (16, 1)])
@@ -167,20 +216,54 @@ def test_site_energies_backward_is_pair_forces_kernel(dev):
 def test_giveback_matches_plain(dev):
     model, pos_s, c, _, swl, k = _case(dev, 16, 2)
     t = fm.pair_forces_mega(*_inputs(model, pos_s, c, swl, k))
-    got = wg.window_giveback(t, swl.mirror)
+    got = wg.window_giveback(t, k["mirror_t"])
     torch.cuda.synchronize()
-    assert _err(got, wg.window_giveback_plain(t, swl.mirror)) < 1e-5
+    assert _err(got, wg.window_giveback_plain(t, k["mirror_t"])) < 1e-5
+    assert torch.equal(got, wg.window_giveback(t, k["mirror_t"]))  # no atomics
     # Newton's third law: the forces of a periodic box sum to zero
     assert float(got.double().sum(0).abs().max()) < 1e-3
 
 
+@pytest.mark.parametrize("n", [1000, 60000], ids=["fits in L2", "past L2"])
+def test_giveback_layouts_match_plain(dev, n):
+    """Both of K3's layouts (two slot groups while pair_T and mirror_t fit in
+    the card's L2, one thread per atom past it) on a random pair_T and a
+    random mirror involution, J = 64: within 1e-5 of the plain twin, and
+    two launches bit-equal."""
+    j = 64
+    g = torch.Generator(device=dev).manual_seed(n)
+    perm = torch.randperm(j * n, device=dev, generator=g).view(-1, 2)
+    mirror_t = torch.empty(j * n, dtype=torch.int64, device=dev)
+    mirror_t[perm[:, 0]] = perm[:, 1]
+    mirror_t[perm[:, 1]] = perm[:, 0]
+    mirror_t = mirror_t.view(j, n).to(torch.int32)
+    t = torch.randn((3, j, n), device=dev, generator=g) * 0.05  # eV/A, as pair forces
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    assert (16 * j * n <= l2) == (n == 1000)
+    got = wg.window_giveback(t, mirror_t)
+    assert _err(got, wg.window_giveback_plain(t, mirror_t)) < 1e-5
+    assert torch.equal(got, wg.window_giveback(t, mirror_t))
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     model, pos_s, c, _, swl, k = _case(dev, 8, 2)
+    geo = (pos_s, k["idx_t"], c, k["pair_valid_t"], model.cutoff)
+    for i, bad in ((0, pos_s.double()), (1, k["idx_t"].long()), (2, c.double()),
+                   (3, k["pair_valid_t"].float())):
+        with pytest.raises(TypeError):
+            wd.window_geometry(*geo[:i], bad, *geo[i + 1:])
+    for i, bad in ((1, swl.idx), (1, k["idx_t"].T), (3, k["pair_valid_t"].T.contiguous().T),
+                   (0, pos_s.T.contiguous().T)):
+        with pytest.raises(ValueError):
+            wd.window_geometry(*geo[:i], bad, *geo[i + 1:])
+    t = torch.zeros((3, 64, pos_s.shape[0]), dtype=torch.float32, device=dev)
     with pytest.raises(TypeError):
-        wd.window_disp(pos_s.double(), swl.idx, c)
+        wg.window_giveback(t.double(), k["mirror_t"])
     with pytest.raises(TypeError):
-        wg.window_giveback(torch.zeros((3, 64, pos_s.shape[0]), dtype=torch.float64,
-                                       device=dev), swl.mirror)
+        wg.window_giveback(t, k["mirror_t"].long())
+    for bad in (swl.mirror, k["mirror_t"].T.contiguous(), k["mirror_t"].T.contiguous().T):
+        with pytest.raises(ValueError):
+            wg.window_giveback(t, bad)
     args = _inputs(model, pos_s, c, swl, k)
     with pytest.raises(ValueError):
         fm.pair_forces_mega(args[0], args[1].double(), *args[2:])

@@ -23,8 +23,10 @@ from mtp_tpu.md.simulation import make_lattice
 from mtp_tpu.models.mtp import (
     MTPModel as JaxModel,
     _window_forces_from_pairs,
+    _window_geometry as geometry_jax,
     gather_displacements as gather_jax,
     readout_vector as readout_jax,
+    window_constants as constants_jax,
 )
 from mtp_tpu.ops.neighbors import build_sorted_neighbor_list as sorted_jax
 from mtp_tpu.ops.neighbors import grid_shape
@@ -32,7 +34,6 @@ from mtp_tpu.ops.pallas_moments import basic_moments_fused as bmf_jax
 from mtp_tpu.ops.pallas_moments import candidates_mega as cand_jax
 from mtp_tpu.ops.pallas_moments import pair_forces_mega as pf_jax
 from mtp_tpu.ops.pallas_moments import site_energies_mega as se_jax
-from mtp_tpu.ops.window_disp import window_disp as wd_jax
 from mtp_tpu.ops.window_giveback import giveback_reference
 from mtp_tpu_torch.kernels import all_kernels, main_path_kernels
 from mtp_tpu_torch.models.mtp import readout_vector
@@ -48,8 +49,8 @@ from mtp_tpu_torch.ops.fused_moments import (
     pair_forces_mega,
     site_energies_mega,
 )
-from mtp_tpu_torch.ops.window_disp import window_disp
-from mtp_tpu_torch.ops.window_giveback import window_giveback
+from mtp_tpu_torch.ops.window_disp import inverse_cell, window_geometry
+from mtp_tpu_torch.ops.window_giveback import mirror_offsets, window_giveback
 from mtp_tpu_torch.utils.convert import model_from_jax
 
 TOL = 1e-10
@@ -75,21 +76,44 @@ def jitter_box():
     return pos, cell, swl
 
 
-def test_window_disp_matches_jax_kernel(jitter_box):
-    pos, cell, swl = jitter_box
-    n = len(pos)
-    n_pad = swl.idx.shape[0]
-    spos = np.zeros((n_pad, 3))
-    spos[:n] = pos[np.asarray(swl.order)]
-    want = np.asarray(
-        wd_jax(jnp.asarray(spos), swl.window_idx, swl.wl, swl.wl_counts, jnp.asarray(cell))
-    )
-    got = window_disp(_t(spos), _t(swl.window_idx, torch.int32), _t(cell)).numpy()
-    assert got.shape == want.shape
-    assert np.max(np.abs(got - want)) < TOL
+@pytest.fixture(scope="module")
+def tri_box():
+    """The 864-atom box sheared into a triclinic cell (b tilted along x by
+    0.2 of a), jittered, with the JAX sorted list (no slot alignment)."""
+    pos, _, cell = make_lattice("fcc", 4.0, (6, 6, 6))
+    tri = cell.copy()
+    tri[1, 0] = 0.2 * cell[0, 0]
+    pos = pos @ np.linalg.inv(cell) @ tri + np.random.default_rng(1).normal(0, 0.12, pos.shape)
+    swl = sorted_jax(jnp.asarray(pos), jnp.asarray(tri), 5.6, max_neighbors=64,
+                     grid=grid_shape(tri, 5.6))
+    assert not bool(swl.overflow)
+    return pos, tri, swl
+
+
+@pytest.mark.parametrize("box", ["jitter_box", "tri_box"], ids=["orthorhombic", "triclinic"])
+def test_window_disp_matches_jax_kernel(box, mtp_level8_2spec, request):
+    """K1's plain twin, (dispT, maskf), against the JAX window geometry (its
+    interpreted displacement kernel over the window worklists, and its
+    mask) on the JAX list and rebuild constants, padding rows included.
+    The masks are equal; the displacements agree to 1e-10 A (the cell
+    inverses differ in their last bits)."""
+    pos, cell, swl = request.getfixturevalue(box)
+    jm = JaxModel.from_data(mtp_level8_2spec, dtype=jnp.float64)
+    types = np.zeros(len(pos), np.int32)
+    k = constants_jax(jm.schedule, jm.coeffs, jnp.asarray(types), swl, jnp.float64)
+    pos_s, want_d, want_m = geometry_jax(jm.schedule, jnp.asarray(pos), jnp.asarray(cell), swl,
+                                         k["pair_valid_t"], False)
+    got_d, got_m = window_geometry(_t(pos_s), _t(swl.window_idx, torch.int32).T.contiguous(),
+                                   _t(cell), _t(k["pair_valid_t"], torch.bool), jm.cutoff)
+    assert got_d.shape == want_d.shape and got_m.shape == want_m.shape
+    assert np.max(np.abs(got_d.numpy() - np.asarray(want_d))) < TOL
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    assert got_m.dtype == torch.float64 and 20 < float(got_m.sum()) / len(pos) < 60
 
 
 def test_window_disp_matches_gather_displacements(jitter_box):
+    """The same on the unpadded list against the plain JAX gather and the
+    mask rule of mtp_tpu/models/mtp.py:397-400 (cutoff 5.0 A)."""
     pos, cell, swl = jitter_box
     n = len(pos)
     spos = pos[np.asarray(swl.order)]
@@ -98,8 +122,28 @@ def test_window_disp_matches_gather_displacements(jitter_box):
         gather_jax(jnp.asarray(spos), jnp.asarray(idx), jnp.asarray(cell),
                    jnp.linalg.inv(jnp.asarray(cell)))
     )
-    got = window_disp(_t(spos), _t(idx, torch.int32), _t(cell)).numpy()
-    assert np.max(np.abs(got - np.moveaxis(ref, (0, 1, 2), (2, 1, 0)))) < TOL
+    ref_t = np.moveaxis(ref, (0, 1, 2), (2, 1, 0))
+    valid_t = (idx != np.arange(n)[:, None]).T
+    got_d, got_m = window_geometry(_t(spos), _t(idx.T, torch.int32), _t(cell), _t(valid_t),
+                                   5.0)
+    assert np.max(np.abs(got_d.numpy() - ref_t)) < TOL
+    d2 = ref_t[0] ** 2 + ref_t[1] ** 2 + ref_t[2] ** 2
+    np.testing.assert_array_equal(got_m.numpy(), ((d2 <= 25.0) & valid_t).astype(np.float64))
+
+
+def test_cell_inverse_matches_inverse_cell():
+    """The port's closed-form cell inverse (adjugate over determinant, K1's
+    and every other caller's) against LAPACK's LU inverse and mtp_tpu's
+    jnp.linalg.inv, float64: orthorhombic, the triclinic cell of tri_box,
+    and a general cell, to 1e-15 of the largest entry."""
+    ortho = np.diag([24.0, 25.5, 23.25])
+    tri = ortho.copy()
+    tri[1, 0] = 4.8
+    gen = np.array([[10.0, 0.5, -0.3], [1.0, 11.0, 0.2], [0.4, -1.2, 12.0]])
+    for cell in (ortho, tri, gen):
+        got = inverse_cell(_t(cell))
+        for want in (torch.linalg.inv(_t(cell)), _t(jnp.linalg.inv(jnp.asarray(cell)))):
+            assert float((got - want).abs().max()) <= 1e-15 * float(want.abs().max())
 
 
 def _random_pairs(rng, n, j, species):
@@ -279,7 +323,8 @@ def test_dag_tables_reproduce_contract_dag_and_its_vjp(level):
 
 
 def test_giveback_matches_jax_reference_and_mirror_path(jitter_box):
-    """K3's plain twin, sum_s T(i,s) - T(mirror), against the JAX give-back
+    """K3's plain twin, sum_s T(i,s) - T(mirror) through the mirror offsets
+    mirror_t, against the JAX give-back
     reference (own sum minus giveback_reference over `rev`) and against the
     JAX flat-mirror force assembly."""
     _, _, swl = jitter_box
@@ -293,10 +338,28 @@ def test_giveback_matches_jax_reference_and_mirror_path(jitter_box):
     want_mirror = np.asarray(
         _window_forces_from_pairs(jnp.asarray(pair_T), dataclasses.replace(swl, gb=None))
     )
-    got = window_giveback(_t(pair_T), _t(swl.mirror, torch.int32)).numpy()
+    mirror_t = mirror_offsets(_t(swl.mirror, torch.int32), n_pad, j)
+    got = window_giveback(_t(pair_T), mirror_t).numpy()
     assert got.shape == (n_pad, 3)
     assert np.max(np.abs(got - want_gb.T)) < TOL
     assert np.max(np.abs(got - want_mirror)) < TOL
+
+
+def test_mirror_offsets_address_the_flat_mirror(jitter_box):
+    """mirror_t[s, i] reaches, in pair_T's (3, J, N) layout, the entry that
+    the flat mirror permutation reaches in the (N, J, 3) layout; and a
+    mirror's mirror is the pair itself."""
+    _, _, swl = jitter_box
+    n, j = swl.idx.shape
+    mirror = _t(swl.mirror, torch.int32)
+    mirror_t = mirror_offsets(mirror, n, j)
+    assert mirror_t.dtype == torch.int32 and mirror_t.shape == (j, n)
+    pair_T = _t(np.random.default_rng(8).normal(size=(3, j, n)))
+    flat = pair_T.permute(2, 1, 0).reshape(-1, 3)[mirror.long()].reshape(n, j, 3)
+    np.testing.assert_array_equal(pair_T.reshape(3, -1)[:, mirror_t.long()].numpy(),
+                                  flat.permute(2, 1, 0).numpy())
+    m = mirror_t.long().reshape(-1)
+    np.testing.assert_array_equal(m[m].numpy(), np.arange(n * j))
 
 
 def test_cpu_wrappers_never_launch_kernels(mega_case, jitter_box):
@@ -309,9 +372,9 @@ def test_cpu_wrappers_never_launch_kernels(mega_case, jitter_box):
     targs = _torch_args(tm, dispT, mask, it, jt)
     site_energies_mega(*targs, _t(esp))
     pt = pair_forces_mega(*targs)
-    window_giveback(pt, torch.zeros(pt.shape[1] * pt.shape[2], dtype=torch.int32))
-    window_disp(torch.zeros((4, 3), dtype=torch.float64),
-                torch.zeros((4, 2), dtype=torch.int32), _t(cell))
+    window_giveback(pt, torch.zeros(pt.shape[1:], dtype=torch.int32))
+    window_geometry(torch.zeros((4, 3), dtype=torch.float64), torch.zeros((2, 4), dtype=torch.int32),
+                    _t(cell), torch.zeros((2, 4), dtype=torch.bool), 5.0)
     for k, (l0, p0) in zip(ks, before):
         assert k.launches == 0 == l0, k.name
         assert k.plain_calls > p0, k.name
@@ -602,8 +665,7 @@ def al_case(mtp_level8_2spec):
     swl = build_sorted_neighbor_list(p, c, tm.cutoff, max_neighbors=64, grid=grid_t(cell, tm.cutoff))
     assert not bool(swl.overflow)
     k = window_constants(tm, _t(types, torch.int32), swl)
-    dispT = window_disp(p[swl.order], swl.idx, c)
-    mask = (((dispT**2).sum(0) <= tm.cutoff**2) & k["pair_valid_t"]).double()
+    dispT, mask = window_geometry(p[swl.order], k["idx_t"], c, k["pair_valid_t"], tm.cutoff)
     return jm, tm, dispT.numpy(), mask.numpy(), k["it_row"].numpy(), k["jtypes_t"].numpy(), \
         k["esp"].numpy()
 

@@ -142,8 +142,9 @@ def test_cpu_run_launches_no_kernel(alloy):
 
 def test_device_window_counts_overlaps_once():
     """The profiler's idle share reads span and busy time from one trace:
-    overlapping device events count once, host events not at all."""
-    from mtp_tpu_torch.utils.prof import device_window
+    overlapping device events count once, host events not at all; its
+    kernel count takes kernels only."""
+    from mtp_tpu_torch.utils.prof import device_window, kernel_count
 
     ev = [
         dict(ph="X", cat="kernel", ts=10.0, dur=5.0),
@@ -152,5 +153,6 @@ def test_device_window_counts_overlaps_once():
         dict(ph="X", cat="kernel", ts=30.0, dur=10.0),
     ]
     assert device_window(ev) == (30.0, 17.0)
+    assert kernel_count(ev) == 2
     with pytest.raises(ValueError):
         device_window(ev[2:3])
