@@ -43,8 +43,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each, and K5, K6 and K7 at these shapes are held against their plain
    versions and timed.
 
-Prints one JSON line of all seven kernels before the last line, and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
+8. Ensembles (after phase 7, before phase 5's profiler part). (a) The
+   phase-3 box: 20 NPT steps from one state on the fp32 kernel path
+   (``Simulation.run_async``) and on the float64 plain path (``npt_step``
+   over ``mtp_energy_forces``), held to max|dx|, the cell and the
+   barostat's strain rate (gates at the top of this file); the fp32
+   per-atom virial against the float64 one, and its sum against the
+   virial. (b) At phase 4's width from its equilibrated state: NVE with
+   the virial off and on, NVT, Langevin and NPT-tri for 60 steps, NPT-iso
+   for 120 at the box's own initial pressure; a first pass checks each
+   run and counts its launches, then three rounds time the runs in turns.
+   Each prints its median atom-steps/s and its rounds, the kernel launches
+   per step, its flags and the conserved quantity's drift per atom; the
+   virial's cost is the median over the rounds of NVE's step time with it
+   on minus off. Every ``Simulation.steps`` block runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a step that reads the
+   device from the host fails. (c) ``Simulation.run`` from J = 32 grows J
+   until the list fits and finishes. (d) FIRE on the 32,000-atom lattice
+   rattled by 0.05 A to ftol 1e-2 eV/A or 200 iterations. (e)
+   ``run_with_extrapolation`` under NPT for 60 steps graded every 30 on
+   phase 7's MVS, launching K5 once per grade step.
+
+Prints one JSON line of the ensembles' numbers, then one of all seven
+kernels, before the last line, and as the last line ``{"ok": true,
+"device": {...}}``. Exits non-zero without a result
 when no CUDA device is present or the package is missing.
 """
 
@@ -90,6 +112,14 @@ TOL_K6_REL, TOL_K7 = 1e-5, 5e-5
 # 4e-5), measured on an H100. Each run prints its own rounding floor beside
 # the error.
 GATE_B_REL, GATE_GRADE_REL, GATE_MAX_GRADE_REL = 1e-5, 1e-2, 1e-3
+# phase 8a: 20 NPT steps, fp32 kernel path vs float64 plain path on the
+# phase-3 box: max|dx| [A], the cell relative to its largest entry, and the
+# barostat strain rate relative to its largest magnitude over the f64 run
+# (1.9e-5 A, 5.3e-7 and 2.4e-6 measured on an H100; the gates started at
+# 1e-4, 1e-5 and 1e-3). The per-atom virial, max|dvatom| in eV (4.5e-6
+# measured), and its sum against the f64 virial, held to GATE_DW as the
+# virial is (6.3e-5 measured).
+GATE_NPT_DX, GATE_NPT_CELL, GATE_NPT_BV, GATE_VATOM = 5e-5, 5e-6, 5e-5, 5e-5
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -610,7 +640,265 @@ def al_path_phase(dev, card):
               f"on the device (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), {row['bound_ms'] / dev_ms:.1%} of the device time")
         rows.append(row)
-    return rows
+    return rows, model, state
+
+
+ENS_KW = dict(temperature=300.0, tdamp=0.1, pdamp=1.0)
+ENS_ROUNDS = 3  # timed rounds of the phase-8b configurations, in turns
+
+
+class _NoSyncSimulation:
+    """Mixin: every ``steps`` block under ``set_sync_debug_mode("error")``,
+    so any host read of the device inside a block raises."""
+
+    def steps(self, *args, **kw):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+        out = super().steps(*args, **kw)
+        torch.cuda.set_sync_debug_mode(0)
+        return out
+
+
+def npt_fp32_vs_f64(m2, p32, c32, ty):
+    """Phase 8a on the phase-3 box. Returns the errors."""
+    import torch
+
+    from mtp_tpu_torch.md import integrators as itg
+    from mtp_tpu_torch.md.simulation import Simulation
+    from mtp_tpu_torch.md.state import init_state, volume_of
+    from mtp_tpu_torch.models.mtp import (
+        MTPModel,
+        mtp_energy_forces,
+        mtp_energy_forces_window,
+        window_constants,
+    )
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, build_sorted_neighbor_list
+    from mtp_tpu_torch.utils import units
+
+    dev = p32.device
+    types = ty.cpu().numpy()
+    masses = np.where(types == 0, 58.693, 26.98)
+    rng = np.random.default_rng(SEED)
+    vel = rng.normal(size=(len(types), 3)) * np.sqrt(units.KB * 300.0 / (masses * units.MVV2E))[:, None]
+    vel -= (vel * masses[:, None]).sum(0) / masses.sum()
+    pos, cell = p32.cpu().numpy(), c32.cpu().numpy()
+    kw = dict(pressure=0.0, **ENS_KW)
+    model32 = MTPModel.from_data(m2, device=dev, dtype=torch.float32)
+    model64 = MTPModel.from_data(m2, device=dev, dtype=torch.float64)
+
+    st32 = init_state(pos, types, masses, cell, velocities=vel, dtype=torch.float32, device=dev)
+    sim = Simulation(model32, max_neighbors=64, skin=0.6, steps_per_rebuild=20)
+    st32, aux32, fl = sim.run_async(st32, 20, ensemble="npt", dt=0.001, **kw)
+    check(not bool(fl), "8a fp32 NPT flags set")
+
+    st64 = init_state(pos, types, masses, cell, velocities=vel, dtype=torch.float64, device=dev)
+    cut = model64.cutoff + 0.6
+    nl = build_neighbor_list(st64.positions, st64.cell, cut, max_neighbors=64,
+                             grid=sim.grid_for(st64.cell))
+    check(not bool(nl.overflow), "8a f64 list overflow")
+
+    def force_fn(positions, types_, cell_):
+        out = mtp_energy_forces(model64, positions, types_, nl.idx, cell_, nl.mirror)
+        return out["forces"], out["energy"], out["virial"]
+
+    st64 = itg._with_forces(st64, force_fn)
+    aux64 = itg.npt_init(torch.float64, dev)
+    bv_max = 0.0
+    for _ in range(20):
+        st64, aux64 = itg.npt_step(st64, aux64, force_fn, 0.001, **kw)
+        bv_max = max(bv_max, abs(float(aux64.baro_v)))
+    d0 = st64.positions - nl.reference_positions
+    check(float(d0.norm(dim=-1).max()) < 0.3, "8a f64 run left its list's skin")
+    dx = max_err(st32.positions, st64.positions)
+    dcell = max_err(st32.cell, st64.cell) / float(st64.cell.abs().max())
+    dbv = abs(float(aux32.baro_v) - float(aux64.baro_v)) / bv_max
+    print(f"[8a NPT] {len(types)} atoms, level 16, 2 species, 20 steps at 0 bar, fp32 kernel "
+          f"path vs f64 plain path: max|dx|={dx:.3e} A (gate {GATE_NPT_DX:.0e}), cell "
+          f"{dcell:.3e} relative (gate {GATE_NPT_CELL:.0e}), baro_v {dbv:.3e} of its max "
+          f"{bv_max:.3e} (gate {GATE_NPT_BV:.0e}); V {float(np.linalg.det(cell)):.4f} -> "
+          f"{float(volume_of(st64)):.4f} A^3")
+    check(dx <= GATE_NPT_DX and dcell <= GATE_NPT_CELL and dbv <= GATE_NPT_BV,
+          "8a fp32 NPT vs f64")
+
+    # per-atom virial: fp32 window path vs f64 plain path, on the phase-3 box
+    swl = build_sorted_neighbor_list(p32, c32, cut, max_neighbors=64, grid=sim.grid_for(c32))
+    w32 = mtp_energy_forces_window(model32, p32, c32, swl, compute_vatom=True,
+                                   **window_constants(model32, ty, swl))
+    p64, c64 = p32.double(), c32.double()
+    nl64 = build_neighbor_list(p64, c64, cut, max_neighbors=64, grid=sim.grid_for(c64))
+    w64 = mtp_energy_forces(model64, p64, ty, nl64.idx, c64, nl64.mirror, compute_vatom=True)
+    dva = max_err(w32["vatom"], w64["vatom"])
+    dsum = max_err(w32["vatom"].double().sum(0), w64["virial"])
+    print(f"[8a vatom] fp32 window vs f64 plain: max|dvatom|={dva:.3e} eV (gate "
+          f"{GATE_VATOM:.0e}), |sum vatom - W(f64)|={dsum:.3e} eV (gate {GATE_DW:.0e})")
+    check(dva <= GATE_VATOM and dsum <= GATE_DW, "8a per-atom virial vs f64")
+    return dict(dx=dx, dcell=dcell, dbaro_v=dbv, dvatom=dva, dvatom_sum=dsum)
+
+
+def ensembles_phase(dev, card, m2, p32, c32, ty, model, state, al_model, al_state):
+    """Phase 8. `model` and `state`: phase 4's model and final state;
+    `al_model` and `al_state`: phase 7's model with its MVS and its final
+    state."""
+    import torch
+
+    from mtp_tpu_torch.al.driver import ExtrapolationMonitor, run_with_extrapolation
+    from mtp_tpu_torch.kernels import all_kernels, main_path_kernels, reset_counts
+    from mtp_tpu_torch.md import integrators as itg
+    from mtp_tpu_torch.md.minimize import fire_minimize
+    from mtp_tpu_torch.md.simulation import Simulation, _default_aux, make_lattice
+    from mtp_tpu_torch.md.state import init_state, kinetic_energy, pressure_of, volume_of
+
+    class Sim(_NoSyncSimulation, Simulation):
+        pass
+
+    report = {"card": card, "npt_fp32_vs_f64": npt_fp32_vs_f64(m2, p32, c32, ty)}
+    n = state.n_atoms
+    kernels = main_path_kernels()
+
+    def conserved(ens, st, aux, kw):
+        if ens == "nvt":
+            return itg.nvt_conserved(st, aux, kw["temperature"], kw["tdamp"])
+        if ens == "npt":
+            return itg.npt_conserved(st, aux, **kw)
+        if ens == "npt-tri":
+            return itg.npt_aniso_conserved(st, aux, couple="tri", **kw)
+        return st.potential_energy + kinetic_energy(st)  # NVE; Langevin: not conserved
+
+    # the box's own initial pressure, from a force evaluation with the virial
+    probe = Simulation(model, max_neighbors=64, skin=0.6)
+    st_v = probe.refresh_forces(state, probe.rebuild(state, grid=probe.grid_for(state.cell),
+                                                     max_neighbors=64), ensemble="npt")
+    p0 = float(pressure_of(st_v))
+    runs = [("nve", 60, False), ("nve", 60, True), ("nvt", 60, False), ("langevin", 60, False),
+            ("npt-tri", 60, False), ("npt", 120, False)]
+    cfgs = []
+    for ens, steps, virial in runs:
+        kw = dict(ENS_KW, pressure=p0) if ens.startswith("npt") else (
+            {} if ens == "nve" else dict(temperature=300.0, tdamp=0.1))
+        sim = Sim(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
+                  compute_virial=virial)
+        cfgs.append((ens, steps, virial, kw, sim, st_v if ens.startswith("npt") else state))
+
+    def drive(ens, steps, kw, sim, st0):
+        """One run of `steps` steps from `st0` with a fresh aux: (state, aux,
+        flags, wall seconds)."""
+        aux = _default_aux(ens, st0)
+        torch_sync()
+        t0 = time.perf_counter()
+        st, aux, fl = sim.run_async(st0, steps, ensemble=ens, dt=0.001, aux=aux,
+                                    refresh=False, **kw)
+        torch_sync()
+        return st, aux, fl, time.perf_counter() - t0
+
+    # a first pass counts the launches and checks every run (it also warms
+    # them up), then ENS_ROUNDS timed rounds take the configurations in turns
+    rows = []
+    for ens, steps, virial, kw, sim, st0 in cfgs:
+        reset_counts()
+        h0 = None if ens == "langevin" else float(conserved(ens, st0, _default_aux(ens, st0),
+                                                           kw))
+        st, aux, fl, _ = drive(ens, steps, kw, sim, st0)
+        launches = {k.name: k.launches for k in kernels}
+        plain = sum(k.plain_calls for k in all_kernels())
+        blocks = -(-steps // 30)
+        drift = None if h0 is None else (float(conserved(ens, st, aux, kw)) - h0) / n
+        rows.append(dict(ensemble=ens, compute_virial=virial or ens.startswith("npt"),
+                         steps=steps, launches=launches,
+                         launches_per_step=sum(launches.values()) / steps, plain_calls=plain,
+                         overflow=bool(fl.overflow), stale=bool(fl.stale),
+                         drift_per_atom=drift,
+                         volume_ratio=float(volume_of(st)) / float(volume_of(st0)), walls=[]))
+        check(not fl.overflow and not fl.stale, f"8b {ens} flags set")
+        check(plain == 0, f"8b {ens}: a plain twin ran")
+        for k in kernels[:3]:
+            check(k.launches >= steps, f"8b {ens}: {k.name} launched {k.launches} times in "
+                  f"{steps} steps")
+        check(launches["site_energies_mega"] >= blocks, f"8b {ens}: K4 not once per block")
+        check(bool(st.positions.isfinite().all()), f"8b {ens}: non-finite positions")
+    for _ in range(ENS_ROUNDS):
+        for row, (ens, steps, _v, kw, sim, st0) in zip(rows, cfgs):
+            st, _, fl, wall = drive(ens, steps, kw, sim, st0)
+            check(not fl.overflow and not fl.stale and bool(st.positions.isfinite().all()),
+                  f"8b {ens}: a timed run went wrong")
+            row["walls"].append(wall)
+    for row in rows:
+        ens, steps = row["ensemble"], row["steps"]
+        rates = [n * steps / w for w in row["walls"]]
+        row["atom_steps_per_s_rounds"] = rates
+        row["atom_steps_per_s"] = float(np.median(rates))
+        drift = row["drift_per_atom"]
+        tag = f"{ens}{' (virial on)' if row['compute_virial'] and ens == 'nve' else ''}"
+        print(f"[8b {tag}] {n} atoms, {steps} steps: median {row['atom_steps_per_s']:.1f} "
+              f"atom-steps/s of {ENS_ROUNDS} rounds {[round(r, 1) for r in rates]} on {card}; "
+              f"launches {row['launches']} ({row['launches_per_step']:.3f} per step), plain "
+              f"calls {row['plain_calls']}; flags overflow={row['overflow']} "
+              f"stale={row['stale']}; conserved drift "
+              f"{'n/a' if drift is None else f'{drift:.3e} eV/atom'}; V/V0 "
+              f"{row['volume_ratio']:.6f}" + (f"; p_ext {p0:.1f} bar" if ens.startswith("npt")
+                                               else ""))
+    # the virial's cost: NVE with it on minus off, per step, paired by round
+    virial_ms = [(on - off) / rows[0]["steps"] * 1e3
+                 for off, on in zip(rows[0]["walls"], rows[1]["walls"])]
+    print(f"[8b virial] NVE with the virial on minus off: median "
+          f"{float(np.median(virial_ms)):.4f} ms per step, by round "
+          f"{[round(v, 4) for v in virial_ms]} on {card}")
+    report["ensembles"] = rows
+    report["virial_ms_per_step"] = dict(median=float(np.median(virial_ms)), rounds=virial_ms)
+
+    # 8c: Simulation.run from J = 32 grows the list until it fits
+    sim = Simulation(model, max_neighbors=32, skin=0.6, steps_per_rebuild=30)
+    reset_counts()
+    t0 = time.perf_counter()
+    st, _ = sim.run(st_v, 30, ensemble="npt", dt=0.001, pressure=p0, **ENS_KW)
+    torch_sync()
+    print(f"[8c run] NPT 30 steps from J=32: J grew to {sim.max_neighbors}, steps_per_rebuild "
+          f"{sim.steps_per_rebuild}, step {int(st.step) - int(st_v.step)}, "
+          f"{time.perf_counter() - t0:.3f} s with the retries")
+    check(sim.max_neighbors > 32 and int(st.step) - int(st_v.step) == 30, "8c run did not recover")
+    report["run_from_j32"] = dict(j=sim.max_neighbors, steps_per_rebuild=sim.steps_per_rebuild)
+
+    # 8d: FIRE on the rattled lattice
+    pos, types, cell = make_lattice("fcc", 4.0, AL_BOX)
+    pos = pos + np.random.default_rng(0).normal(0.0, 0.05, pos.shape)
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=torch.float32, device=dev)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=20)
+    reset_counts()
+    torch_sync()
+    t0 = time.perf_counter()
+    st, res = fire_minimize(sim, st, ftol=1e-2, max_steps=200)
+    torch_sync()
+    ms_it = (time.perf_counter() - t0) * 1e3 / res.iterations
+    print(f"[8d FIRE] {len(pos)} atoms rattled 0.05 A: {res.iterations} iterations, stop "
+          f"{res.stop_reason}, fmax {res.fmax:.4e} eV/A, E {res.potential_energy:.4f} eV, "
+          f"{ms_it:.4f} ms per iteration on {card}; steps_per_rebuild 20 -> "
+          f"{sim.steps_per_rebuild}, J {sim.max_neighbors}; launches "
+          f"{ {k.name: k.launches for k in kernels} }")
+    check(res.stop_reason in ("ftol", "maxiter") and np.isfinite(res.fmax), "8d FIRE")
+    check(all(k.launches > 0 for k in kernels), "8d FIRE did not launch K1-K4")
+    report["fire"] = dict(iterations=res.iterations, stop_reason=res.stop_reason,
+                          fmax=res.fmax, ms_per_iteration=ms_it,
+                          steps_per_rebuild=sim.steps_per_rebuild)
+
+    # 8e: active learning under NPT, from phase 7's final state
+    st = al_state
+    sim = Sim(al_model, max_neighbors=64, skin=0.6, steps_per_rebuild=30, compute_virial=False)
+    mon = ExtrapolationMonitor(al_model)
+    reset_counts()
+    t0 = time.perf_counter()
+    st = run_with_extrapolation(sim, mon, st, 60, al_every=30, ensemble="npt", dt=0.001,
+                                pressure=0.0, **ENS_KW)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    al = {k.name: k.launches for k in all_kernels()}
+    plain = sum(k.plain_calls for k in all_kernels())
+    print(f"[8e AL NPT] {st.n_atoms} atoms, 60 NPT steps graded every 30: launches {al}, plain "
+          f"calls {plain}, max grade {mon.max_grade:.4f}, {st.n_atoms * 60 / wall:.1f} "
+          f"atom-steps/s on {card}")
+    check(al["candidates_mega"] == 3 and plain == 0, "8e K5 not launched once per grade step")
+    check(bool(st.positions.isfinite().all()), "8e non-finite positions")
+    report["al_npt"] = dict(k5_launches=al["candidates_mega"], max_grade=mon.max_grade)
+    return report
 
 
 def main() -> int:
@@ -751,7 +1039,12 @@ def main() -> int:
     al_kernel_phase(m2, p32, ty, c32, swl)
 
     # ---- 7. the AL path at full width
-    rows7 = al_path_phase(dev, card)
+    rows7, al_model, al_state = al_path_phase(dev, card)
+
+    # ---- 8. the other ensembles, run, FIRE and AL under NPT; before phase
+    # 5's profiler part, which slows the host-bound runs after it
+    ens_report = ensembles_phase(dev, card, m2, p32, c32, ty, model, state, al_model,
+                                 al_state)
 
     # ---- 5, continued: device time by stage kernel. Taken after phase 7:
     # a torch.profiler session slows the host-bound runs that follow it in
@@ -775,6 +1068,7 @@ def main() -> int:
         rows.append(row)
     rows += rows7
     print(card)
+    print(json.dumps({"ensembles": ens_report}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

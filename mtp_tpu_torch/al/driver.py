@@ -2,8 +2,10 @@
 reference's two observation styles and two-threshold selection semantics.
 
 Port of ``mtp_tpu/al/driver.py`` (single device; the sharded monitor waits
-for the multi-device slice, and AL under NVT/NPT for the other ensembles:
-:meth:`Simulation.run_async` runs NVE only).
+for the multi-device slice). The MD segments run under any ensemble of
+:meth:`Simulation.run_async`, with the integrator state carried across
+segments; every grade step tallies the virial, so a barostat continues from
+a consistent state after each refresh.
 
 * LAMMPS style (reference README.md:60-82): grades computed every N steps on
   request; per-atom grades and the scalar max grade are exposed as observables
@@ -251,7 +253,10 @@ def run_with_extrapolation(
 
     Retries a segment with grown capacity / halved rebuild interval on
     overflow / staleness (the `Simulation.run` contract). `run_kwargs` go to
-    :meth:`Simulation.run_async` (``ensemble``, ``dt``).
+    :meth:`Simulation.run_async` (``ensemble``, ``dt``, ``temperature``,
+    ``pressure``, ``tdamp``, ``pdamp``); the integrator state (chains,
+    barostat, Langevin generator) is carried from segment to segment, and a
+    retried segment restarts from the aux it started with.
 
     Returns the final state; raises :class:`BreakThresholdExceeded` in MLIP-3
     style when the break threshold is hit (stream flushed first).

@@ -1,14 +1,24 @@
-"""Simulation driver: the MTP model, the neighbor engine and the NVE
-integrator in a block loop (port of ``mtp_tpu/md/simulation.py``'s
-``run_async`` path).
+"""Simulation driver: the MTP model, the neighbor engine and an integrator
+in a block loop (port of ``mtp_tpu/md/simulation.py``).
 
 Each block rebuilds the bin-sorted neighbor list once, moves the state into
-sorted space, runs ``steps_per_rebuild`` velocity-Verlet steps with force-only
+sorted space, runs ``steps_per_rebuild`` integrator steps with force-only
 evaluations (K1, K2, K3 on the card), checks Verlet staleness with the top-2
 displacement rule, evaluates the energy once (K4) and moves back. The loop is
-eager Python over kernel launches and plain torch operations; after reading
-the cell once at the start, the host does not wait for the device until the
-caller reads the returned flags.
+eager Python over kernel launches and plain torch operations. Three drivers:
+
+* :meth:`Simulation.run`       host loop: per-block flag check with the
+                               overflow and staleness recovery, observer hook.
+* :meth:`Simulation.run_async` throughput path: blocks queued back to back,
+                               no host read until the caller reads the flags.
+* :meth:`Simulation.run_fused` ``n_blocks`` blocks back to back on a fixed
+                               grid and width, flags OR-ed into one.
+
+Ensembles: ``"nve"``, ``"nvt"`` (Nose-Hoover chain), ``"langevin"`` (BAOAB),
+``"npt"`` (isotropic MTK), ``"npt-aniso"`` and ``"npt-tri"`` (full-cell
+MTK). The port has one force path, the window path: the JAX package's
+TPU knobs ``remat``, ``backend``, ``window`` and ``giveback`` have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -34,14 +44,23 @@ from mtp_tpu_torch.ops.neighbors import (
 )
 from mtp_tpu_torch.ops.window_disp import cell_product, inverse_cell
 
+ENSEMBLES = ("nve", "nvt", "langevin", "npt", "npt-aniso", "npt-tri")
+_CONSTANT_CELL = ("nve", "nvt", "langevin")
+
+
+def _check_ensemble(ensemble: str) -> None:
+    if ensemble not in ENSEMBLES:
+        raise ValueError(f"unknown ensemble {ensemble!r}; one of {ENSEMBLES}")
+
 
 @dataclasses.dataclass
 class RunFlags:
     """Failure flags of an async run (device bool scalars).
 
     `overflow`: a neighbor or bin capacity, or the bin-grid geometry, was
-    exceeded: grow `max_neighbors`. `stale`: an atom outran the Verlet skin
-    within a block: shorten `steps_per_rebuild`. ``bool(flags)`` is the OR.
+    exceeded: grow `max_neighbors` (or re-derive the grid). `stale`: an atom
+    outran the Verlet skin within a block: shorten `steps_per_rebuild`.
+    ``bool(flags)`` is the OR.
     """
 
     overflow: torch.Tensor
@@ -53,14 +72,18 @@ class RunFlags:
 
 @dataclasses.dataclass(eq=False)
 class Simulation:
-    """Host-side controller for single-device NVE MD.
+    """Host-side controller for single-device MD.
 
     Args:
       model: the MTP model (its device and dtype are the run's).
-      max_neighbors: neighbor width J.
+      max_neighbors: neighbor width J (:meth:`run` grows it on overflow).
       skin: Verlet skin [A]; lists are built at cutoff + skin.
       steps_per_rebuild: steps per neighbor rebuild.
-      compute_virial: tally the virial every step (off for pure NVE runs).
+      compute_virial: tally the virial every step (LAMMPS vflag). The
+        ``npt*`` ensembles tally it whatever this says.
+      grid_margin: bins are sized >= grid_margin*(cutoff+skin), so an NPT
+        cell can shrink by (grid_margin-1) before the grid, fixed for a
+        :meth:`run_async` or :meth:`run_fused` call, trips the geometry flag.
     """
 
     model: MTPModel
@@ -68,19 +91,21 @@ class Simulation:
     skin: float = 0.5
     steps_per_rebuild: int = 10
     compute_virial: bool = True
+    grid_margin: float = 1.0
 
     def force_fn_window(
-        self, swl: SortedNeighborList, types, *,
+        self, swl: SortedNeighborList, types, compute_virial=None, *,
         sorted_io: bool = False, compute_energy: bool = True,
     ):
         """Force closure over a frozen list; rebuild constants are computed
         here, once. `types` is in user order. The closure's `energy_fn`
         evaluates the energy alone (K4)."""
         consts = window_constants(self.model, types, swl)
+        cv = self.compute_virial if compute_virial is None else compute_virial
 
         def fn(positions, types_unused, cell):
             out = mtp_energy_forces_window(
-                self.model, positions, cell, swl, compute_virial=self.compute_virial,
+                self.model, positions, cell, swl, compute_virial=cv,
                 sorted_io=sorted_io, compute_energy=compute_energy, **consts,
             )
             return out["forces"], out["energy"], out["virial"]
@@ -93,14 +118,51 @@ class Simulation:
         fn.energy_fn = energy_fn
         return fn
 
+    def _virial_for(self, ensemble: str) -> bool:
+        return self.compute_virial or ensemble.startswith("npt")
+
+    def grid_for(self, cell) -> tuple:
+        """The bin grid for a cell: (cutoff + skin) * grid_margin per bin.
+        Reads the cell to the host."""
+        return grid_shape(cell.detach().cpu().numpy(),
+                          (self.model.cutoff + self.skin) * self.grid_margin)
+
     def rebuild(self, state: MDState, *, grid: tuple, max_neighbors: int):
         return build_sorted_neighbor_list(
             state.positions, state.cell, self.model.cutoff + self.skin,
             max_neighbors=max_neighbors, grid=grid,
         )
 
-    def refresh_forces(self, state: MDState, nl: SortedNeighborList):
-        return itg._with_forces(state, self.force_fn_window(nl, state.types))
+    def refresh_forces(self, state: MDState, nl: SortedNeighborList, *, ensemble: str = "nve"):
+        force_fn = self.force_fn_window(nl, state.types, self._virial_for(ensemble))
+        return itg._with_forces(state, force_fn)
+
+    def block(
+        self,
+        state: MDState,
+        aux,
+        *,
+        grid: tuple,
+        max_neighbors: int,
+        ensemble: str = "nve",
+        n_steps: int = 10,
+        dt: float = 0.001,
+        temperature: float = 300.0,
+        pressure: float = 0.0,
+        tdamp: float = 0.1,
+        pdamp: float = 1.0,
+        refresh: bool = False,
+    ):
+        """One block: rebuild, then `n_steps` steps against the list.
+        `refresh` recomputes the incoming forces first (they are stale or
+        zero: the first block, or a retry). Returns (state, aux, overflow,
+        stale), the flags as device scalars."""
+        nl = self.rebuild(state, grid=grid, max_neighbors=max_neighbors)
+        state, aux, stale = self._scan_with_nl(
+            state, aux, nl, refresh=refresh, ensemble=ensemble, n_steps=n_steps, dt=dt,
+            temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+        )
+        return state, aux, nl.overflow, stale
 
     @staticmethod
     def _permute_state(state: MDState, perm):
@@ -113,59 +175,105 @@ class Simulation:
             types=state.types[perm],
         )
 
-    def _scan_with_nl(self, state, nl, *, n_steps, dt):
-        """`n_steps` steps against a frozen list, integrating in SORTED space
-        (one permute in and one out per block). Force-only steps; the energy
-        (K4) runs once at the end of the block. Returns (state, stale) with
+    def _scan_with_nl(self, state, aux, nl, *, refresh=False, **kw):
+        """Steps against a frozen list, integrating in SORTED space (one
+        permute in and one out per block; the integrators are
+        permutation-equivariant). Force-only steps; the energy (K4) runs
+        once at the end of the block. Returns (state, aux, stale) with
         `state` back in user order."""
         force_fn = self.force_fn_window(
-            nl, state.types, sorted_io=True, compute_energy=False,
+            nl, state.types, self._virial_for(kw["ensemble"]),
+            sorted_io=True, compute_energy=False,
         )
         state = self._permute_state(state, nl.order)
-        state, stale = self._scan_steps(
-            state, force_fn, n_steps=n_steps, dt=dt,
-            ref_positions=nl.reference_positions[nl.order],
-            ref_cell=nl.reference_cell,
+        if refresh:
+            state = itg._with_forces(state, force_fn)
+        state, aux, stale = self._scan_steps(
+            state, aux, force_fn, ref_positions=nl.reference_positions[nl.order],
+            ref_cell=nl.reference_cell, **kw,
         )
         state = dataclasses.replace(
             state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
         )
-        return self._permute_state(state, nl.inv_order), stale
+        return self._permute_state(state, nl.inv_order), aux, stale
 
-    def _scan_steps(self, state, force_fn, *, n_steps, dt, ref_positions, ref_cell):
-        """NVE steps with the Verlet staleness check (LAMMPS ``neigh_modify
-        check yes``), OR-accumulated into a device flag.
+    def _scan_steps(
+        self, state, aux, force_fn, *, ensemble, n_steps, dt, temperature, pressure,
+        tdamp, pdamp, ref_positions, ref_cell,
+    ):
+        """Integrator steps with the Verlet staleness check (LAMMPS
+        ``neigh_modify check yes``), OR-accumulated into a device flag.
 
-        Exact pair criterion: a missing pair (i, j) enters the cutoff only if
-        d_i + d_j >= skin for DISTINCT atoms, so the bound is the sum of the
-        two largest displacements, not twice the largest. The cell is
-        constant under NVE, so the cell-shrink term of the JAX driver is
-        evaluated once per block (it is 0 unless the cell changed)."""
+        Under a barostat the cell's affine rescaling moves atoms without
+        invalidating lists, so the check measures the displacement from the
+        reference rescaled into the current cell, and adds a shrink term: a
+        pair just outside cutoff+skin enters the cutoff when the two largest
+        displacements plus (1 - s_min)*(cutoff+skin) exceed the skin. Exact
+        pair criterion: a missing pair (i, j) enters only if d_i + d_j >=
+        skin for DISTINCT atoms, so the bound sums the two largest
+        displacements. Under the constant-cell ensembles the rescaled
+        reference and the shrink term are the same every step and are taken
+        once per block; under NPT they are taken every step."""
+        _check_ensemble(ensemble)
+
+        def step(state, aux):
+            if ensemble == "nve":
+                return itg.nve_step(state, force_fn, dt), aux
+            if ensemble == "nvt":
+                return itg.nvt_step(state, aux, force_fn, dt, temperature, tdamp)
+            if ensemble == "langevin":
+                return itg.langevin_step(state, aux, force_fn, dt, temperature, tdamp)
+            if ensemble == "npt":
+                return itg.npt_step(state, aux, force_fn, dt, temperature, pressure, tdamp,
+                                    pdamp)
+            return itg.npt_aniso_step(state, aux, force_fn, dt, temperature, pressure, tdamp,
+                                      pdamp, couple="tri" if ensemble == "npt-tri" else "aniso")
+
         cut_skin = self.model.cutoff + self.skin
         inv_ref = inverse_cell(ref_cell)
+        ref_frac = cell_product(ref_positions.unbind(-1), inv_ref)
         ref_widths = 1.0 / torch.linalg.vector_norm(inv_ref, dim=1)
-        widths = 1.0 / torch.linalg.vector_norm(inverse_cell(state.cell), dim=1)
-        s_min = torch.min(widths / ref_widths)
-        shrink = torch.clamp(1.0 - s_min, min=0.0) * cut_skin
-        scaled_ref = torch.stack(
-            cell_product(cell_product(ref_positions.unbind(-1), inv_ref), state.cell), dim=-1
-        )
+
+        def geometry(cell):
+            widths = 1.0 / torch.linalg.vector_norm(inverse_cell(cell), dim=1)
+            shrink = torch.clamp(1.0 - torch.min(widths / ref_widths), min=0.0) * cut_skin
+            return torch.stack(cell_product(ref_frac, cell), dim=-1), shrink
+
+        scaled_ref, shrink = geometry(state.cell)
         rows = torch.arange(state.n_atoms, device=state.positions.device)
         stale = torch.zeros((), dtype=torch.bool, device=state.positions.device)
         for _ in range(n_steps):
-            state = itg.nve_step(state, force_fn, dt)
+            state, aux = step(state, aux)
+            if ensemble not in _CONSTANT_CELL:
+                scaled_ref, shrink = geometry(state.cell)
             d = state.positions - scaled_ref
             d2 = torch.sum(d * d, dim=-1)
             m1 = torch.max(d2)
             m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
             stale = stale | (torch.sqrt(m1) + torch.sqrt(m2) + shrink > self.skin)
-        return state, stale
-
-    def steps(self, state: MDState, aux, nl, *, n_steps: int = 10, dt: float = 0.001):
-        """`n_steps` NVE steps with a frozen list. Returns (state, aux,
-        stale); `aux` is passed through (NVE carries no integrator state)."""
-        state, stale = self._scan_with_nl(state, nl, n_steps=n_steps, dt=dt)
         return state, aux, stale
+
+    def steps(
+        self,
+        state: MDState,
+        aux,
+        nl,
+        *,
+        ensemble: str = "nve",
+        n_steps: int = 10,
+        dt: float = 0.001,
+        temperature: float = 300.0,
+        pressure: float = 0.0,
+        tdamp: float = 0.1,
+        pdamp: float = 1.0,
+    ):
+        """`n_steps` integrator steps with a frozen list (pairs with
+        :meth:`rebuild` on the async path). Returns (state, aux, stale):
+        `stale` is a device bool set if an atom outran the skin."""
+        return self._scan_with_nl(
+            state, aux, nl, ensemble=ensemble, n_steps=n_steps, dt=dt,
+            temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+        )
 
     def run_async(
         self,
@@ -174,24 +282,31 @@ class Simulation:
         *,
         ensemble: str = "nve",
         dt: float = 0.001,
+        temperature: float = 300.0,
+        pressure: float = 0.0,
+        tdamp: float = 0.1,
+        pdamp: float = 1.0,
         aux=None,
         return_nl: bool = False,
         refresh: bool = True,
     ):
         """Throughput path: rebuilds and step blocks queued back to back,
-        forces carried across blocks, no host sync until the caller reads
-        the flags.
+        forces carried across blocks, no host read after the cell's, until
+        the caller reads the flags.
 
         Returns (state, aux, flags[, nl]): `flags` is a :class:`RunFlags` of
-        device scalars. `refresh=False` trusts the incoming forces to be
-        consistent with the positions.
+        device scalars. `refresh=False` trusts the incoming forces (and, for
+        NPT, the virial) to be consistent with the positions. Under NPT the
+        bin grid comes from the initial cell and the neighbor build flags
+        `overflow` if the cell shrinks past the grid's validity.
         """
-        if ensemble != "nve":
-            raise ValueError(f"ensemble {ensemble!r} is not ported yet (only 'nve')")
-        cell_h = state.cell.detach().cpu().numpy()
-        cut_skin = self.model.cutoff + self.skin
-        check_cell(cell_h, cut_skin)
-        grid = grid_shape(cell_h, cut_skin)
+        _check_ensemble(ensemble)
+        if aux is None:
+            aux = _default_aux(ensemble, state)
+        check_cell(state.cell.detach().cpu().numpy(), self.model.cutoff + self.skin)
+        grid = self.grid_for(state.cell)
+        kw = dict(ensemble=ensemble, dt=dt, temperature=temperature, pressure=pressure,
+                  tdamp=tdamp, pdamp=pdamp)
         dev = state.positions.device
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         stale_any = torch.zeros((), dtype=torch.bool, device=dev)
@@ -203,15 +318,149 @@ class Simulation:
             nl = self.rebuild(state, grid=grid, max_neighbors=self.max_neighbors)
             overflow = overflow | nl.overflow
             if first:
-                state = self.refresh_forces(state, nl)
+                state = self.refresh_forces(state, nl, ensemble=ensemble)
                 first = False
-            state, aux, stale = self.steps(state, aux, nl, n_steps=k, dt=dt)
+            state, aux, stale = self.steps(state, aux, nl, n_steps=k, **kw)
             stale_any = stale_any | stale
             done += k
         flags = RunFlags(overflow=overflow, stale=stale_any)
         if return_nl:
             return state, aux, flags, nl
         return state, aux, flags
+
+    def run_fused(
+        self,
+        state: MDState,
+        aux,
+        *,
+        grid: tuple,
+        max_neighbors: int,
+        n_blocks: int,
+        steps_per_block: int,
+        ensemble: str = "nve",
+        dt: float = 0.001,
+        temperature: float = 300.0,
+        pressure: float = 0.0,
+        tdamp: float = 0.1,
+        pdamp: float = 1.0,
+    ):
+        """`n_blocks` x (rebuild + `steps_per_block` steps) back to back with
+        no host read, as the JAX package's one compiled program does. No
+        block refreshes its incoming forces: the first block integrates from
+        ``state.forces`` as given. Overflow and staleness are OR-ed into one
+        device flag, returned at the end (re-run with more capacity or a
+        shorter block if set). Under NPT the grid stays `grid`; the neighbor build
+        flags overflow if the cell shrinks past its validity.
+
+        Returns (state, aux, flag)."""
+        _check_ensemble(ensemble)
+        if aux is None:
+            aux = _default_aux(ensemble, state)
+        flag = torch.zeros((), dtype=torch.bool, device=state.positions.device)
+        for _ in range(n_blocks):
+            state, aux, ovf, stale = self.block(
+                state, aux, grid=grid, max_neighbors=max_neighbors, ensemble=ensemble,
+                n_steps=steps_per_block, dt=dt, temperature=temperature,
+                pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+            )
+            flag = flag | ovf | stale
+        return state, aux, flag
+
+    def run(
+        self,
+        state: MDState,
+        n_steps: int,
+        *,
+        ensemble: str = "nve",
+        dt: float = 0.001,
+        temperature: float = 300.0,
+        pressure: float = 0.0,
+        tdamp: float = 0.1,
+        pdamp: float = 1.0,
+        aux=None,
+        observer=None,
+        refresh: bool = True,
+    ):
+        """Run `n_steps`, recovering from tripped blocks.
+
+        Each block is one :meth:`block` on a grid re-derived from the current
+        cell, then one host read of its two flags. On overflow the block is
+        discarded and retried with J grown x1.5 + 8 (rounded up to a
+        multiple of 8); at J >= 1024 it raises (not a list-width problem).
+        On staleness it is retried with `steps_per_rebuild` halved; at 1 it
+        raises (the system diverges or the skin is too small). Both changes
+        stay on this Simulation.
+
+        `observer(state)` is called after every accepted block (host side:
+        thermo output, dumps, hooks). `refresh=False` trusts the incoming
+        ``state.forces`` to be position-consistent and has no block refresh
+        them; with True every block recomputes its incoming forces.
+
+        Returns (state, aux).
+        """
+        _check_ensemble(ensemble)
+        if aux is None:
+            aux = _default_aux(ensemble, state)
+        check_cell(state.cell.detach().cpu().numpy(), self.model.cutoff + self.skin)
+        done = 0
+        while done < n_steps:
+            k = min(self.steps_per_rebuild, n_steps - done)
+            new_state, new_aux, overflow, stale = self.block(
+                state, aux, grid=self.grid_for(state.cell), max_neighbors=self.max_neighbors,
+                ensemble=ensemble, n_steps=k, dt=dt, temperature=temperature,
+                pressure=pressure, tdamp=tdamp, pdamp=pdamp, refresh=refresh,
+            )
+            overflow, stale = torch.stack([overflow, stale]).tolist()
+            if overflow:
+                if self.max_neighbors >= 1024:
+                    raise RuntimeError(
+                        "neighbor overflow persists at max_neighbors="
+                        f"{self.max_neighbors}: not a list-width problem. "
+                        "Check bin_capacity vs the local density, the grid "
+                        "geometry, and the system for collapse/overlap."
+                    )
+                grown = int(self.max_neighbors * 1.5) + 8
+                self.max_neighbors = -(-grown // 8) * 8
+                continue
+            if stale:
+                if self.steps_per_rebuild <= 1:
+                    raise RuntimeError(
+                        "Verlet staleness at steps_per_rebuild=1: an atom "
+                        f"moved > skin/2 ({self.skin / 2:.3f} A) in a single "
+                        f"dt={dt} step. The system is diverging or the skin "
+                        "is too small: check dt/forces or increase skin."
+                    )
+                self.steps_per_rebuild = max(1, self.steps_per_rebuild // 2)
+                continue
+            state, aux = new_state, new_aux
+            done += k
+            if observer is not None:
+                observer(state)
+        return state, aux
+
+    def minimize(self, state: MDState, **kw):
+        """FIRE 2.0 relaxation (LAMMPS ``minimize``) on this simulation's
+        neighbor and force engine; see
+        :func:`mtp_tpu_torch.md.minimize.fire_minimize` for the knobs."""
+        from mtp_tpu_torch.md.minimize import fire_minimize
+
+        return fire_minimize(self, state, **kw)
+
+
+def _default_aux(ensemble, state):
+    """The integrator state a run starts from when the caller gives none:
+    zeroed chains and barostat, or for Langevin a generator on the state's
+    device seeded 0. NVE carries none (None)."""
+    dtype, dev = state.positions.dtype, state.positions.device
+    if ensemble == "nvt":
+        return itg.nhc_init(dtype, dev)
+    if ensemble == "npt":
+        return itg.npt_init(dtype, dev)
+    if ensemble in ("npt-aniso", "npt-tri"):
+        return itg.npt_aniso_init(dtype, dev)
+    if ensemble == "langevin":
+        return itg.langevin_init(0, dev)
+    return None
 
 
 def make_lattice(kind: str, a: float, reps, *, type_pattern=(0,)):

@@ -80,3 +80,23 @@ def kinetic_energy(state: MDState):
 def temperature_of(state: MDState):
     """Instantaneous temperature [K] (3N degrees of freedom)."""
     return 2.0 * kinetic_energy(state) / (3.0 * state.n_atoms * units.KB)
+
+
+def volume_of(state: MDState):
+    """Cell volume |det(cell)| [A^3], as the closed-form triple product
+    ``a . (b x c)`` of the cell rows: elementwise operations, no LAPACK call."""
+    c = state.cell
+    cross = torch.stack([
+        c[1, 1] * c[2, 2] - c[1, 2] * c[2, 1],
+        c[1, 2] * c[2, 0] - c[1, 0] * c[2, 2],
+        c[1, 0] * c[2, 1] - c[1, 1] * c[2, 0],
+    ])
+    return torch.abs(torch.sum(c[0] * cross))
+
+
+def pressure_of(state: MDState):
+    """Instantaneous isotropic pressure [bar]: (2 KE + trace(W)) / (3 V)."""
+    v = volume_of(state)
+    w = state.virial[0] + state.virial[1] + state.virial[2]
+    p_eva3 = (2.0 * kinetic_energy(state) + w) / (3.0 * v)
+    return p_eva3 * units.EVA3_TO_BAR

@@ -1,8 +1,9 @@
-"""Carry a ``mtp_tpu`` model's weights into the port.
+"""Carry a ``mtp_tpu`` model's weights, and an integrator's state, into the
+port.
 
-The conversion reads the JAX model's arrays through ``numpy.asarray``, so this
-module imports no ``jax``: the tests pass one model to both packages and hold
-them to computing the same thing.
+The conversions read the JAX objects' arrays through ``numpy.asarray``, so
+this module imports no ``jax``: the tests pass one model, or one trajectory's
+state, to both packages and hold them to computing the same thing.
 """
 
 from __future__ import annotations
@@ -12,13 +13,29 @@ import dataclasses
 import numpy as np
 import torch
 
+from mtp_tpu_torch.md import integrators as itg
 from mtp_tpu_torch.models.mtp import MTPModel
 from mtp_tpu_torch.ops.moments import MTPSchedule
+from mtp_tpu_torch.utils.device import resolve_device
+
+
+def _no_narrower(name, a, dtype):
+    """`a` as a numpy array, refused if its dtype is narrower than `dtype`:
+    widening float32 coefficients would give a float64 model that silently
+    computes with float32 weights."""
+    a = np.asarray(a)
+    if a.dtype.itemsize < torch.empty((), dtype=dtype).element_size():
+        raise ValueError(
+            f"{name} is {a.dtype}, narrower than the {dtype} asked for; build the "
+            "JAX model in that precision (MTPModel.from_data(..., dtype=...))"
+        )
+    return a
 
 
 def model_from_jax(jax_model, device="cuda", dtype=torch.float64) -> MTPModel:
     """The port's :class:`MTPModel` holding a ``mtp_tpu.MTPModel``'s schedule,
-    coefficients and active-learning selection state, on `device` in `dtype`."""
+    coefficients and active-learning selection state, on `device` in `dtype`.
+    Raises ``ValueError`` if a coefficient array is narrower than `dtype`."""
     s = jax_model.schedule
     sched = MTPSchedule(
         **{f.name: getattr(s, f.name) for f in dataclasses.fields(MTPSchedule)}
@@ -27,12 +44,31 @@ def model_from_jax(jax_model, device="cuda", dtype=torch.float64) -> MTPModel:
     inv = jax_model.inverse_active_set
     return MTPModel.from_arrays(
         sched,
-        np.asarray(c.radial_coeffs),
-        np.asarray(c.species_coeffs),
-        np.asarray(c.moment_coeffs),
+        *(_no_narrower(name, getattr(c, name), dtype)
+          for name in ("radial_coeffs", "species_coeffs", "moment_coeffs")),
         device=device,
         dtype=dtype,
         inverse_active_set=None if inv is None else np.asarray(inv),
         active_set=jax_model.active_set,
         configuration_mode=jax_model.configuration_mode,
     )
+
+
+_AUX_TYPES = {cls.__name__: cls for cls in (itg.NHCAux, itg.NPTAux, itg.NPTAnisoAux)}
+
+
+def aux_from_jax(aux, device="cuda"):
+    """The port's ``NHCAux``/``NPTAux``/``NPTAnisoAux`` holding a
+    ``mtp_tpu.md.integrators`` aux state of the same name, leaf for leaf, on
+    `device` in the leaves' own dtype, so a JAX trajectory can be continued
+    in the port. A JAX ``LangevinAux`` (a ``jax.random`` key) has no
+    counterpart: the port draws from a ``torch.Generator``."""
+    kind = type(aux).__name__
+    if kind not in _AUX_TYPES:
+        raise ValueError(f"no port counterpart for a JAX aux of type {kind}")
+    dev = resolve_device(device)
+    return _AUX_TYPES[kind](*(
+        aux_from_jax(leaf, dev) if isinstance(leaf, tuple)
+        else torch.as_tensor(np.array(leaf), device=dev)
+        for leaf in aux
+    ))

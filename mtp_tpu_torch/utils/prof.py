@@ -2,6 +2,8 @@
 ``mtp_tpu/utils/prof.py``).
 
     python -m mtp_tpu_torch.utils.prof [--reps 20] [--blocks 2] [--out DIR] [--al]
+                                       [--ensemble {nve,nvt,langevin,npt,npt-tri}]
+                                       [--virial]
 
 Runs the ``bench.py`` configuration (level 16, fp32, J = 64, skin 0.6,
 steps_per_rebuild 30, NVE) on 20^3 fcc cells (--reps) after a 60-step warm-up
@@ -16,6 +18,13 @@ and measures, on one GPU:
   read from the one trace;
 * the neighbor rebuild's time (host clock, synchronised, mean of 5);
 * a Chrome trace of the profiled window, written to --out.
+
+``--ensemble`` runs the measured blocks under another ensemble (300 K,
+tdamp 0.1 ps; the barostats at pdamp 1.0 ps and the box's own pressure after
+the warm-up, with the virial tallied every step), the integrator state
+carried from block to block. ``--virial`` tallies the virial every step in
+the other ensembles too, so that two runs, with and without it, give what
+the tally costs.
 
 With ``--al`` it runs ``chip_smoke.py`` phase 7's configuration instead (an
 MVS from three perturbed 4,000-atom boxes; ``run_with_extrapolation`` for
@@ -93,8 +102,8 @@ def main(argv=None) -> int:
     import torch
 
     from mtp_tpu_torch.io.basis_gen import make_mtp
-    from mtp_tpu_torch.md.simulation import Simulation, make_lattice
-    from mtp_tpu_torch.md.state import init_state, thermalize
+    from mtp_tpu_torch.md.simulation import Simulation, _default_aux, make_lattice
+    from mtp_tpu_torch.md.state import init_state, pressure_of, thermalize
     from mtp_tpu_torch.models.mtp import MTPModel
     from mtp_tpu_torch.ops.neighbors import grid_shape
 
@@ -103,6 +112,11 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=2, help="30-step blocks measured")
     ap.add_argument("--out", default="build/prof", help="trace directory")
     ap.add_argument("--al", action="store_true", help="AL path against pure MD")
+    ap.add_argument("--ensemble", default="nve",
+                    choices=("nve", "nvt", "langevin", "npt", "npt-tri"),
+                    help="ensemble of the measured blocks")
+    ap.add_argument("--virial", action="store_true",
+                    help="tally the virial every step (the barostats always do)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("prof: no CUDA device")
@@ -124,12 +138,21 @@ def main(argv=None) -> int:
     eq = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
                     compute_virial=False)
     sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
-                     compute_virial=False)
+                     compute_virial=args.virial)
     st, _, fl = eq.run_async(st, 60)
     steps = 30 * args.blocks
+    ens = args.ensemble
+    kw = dict(temperature=300.0, tdamp=0.1, pdamp=1.0)
+    if ens.startswith("npt"):
+        # forces and virial of the warm-up's last state, and its pressure
+        st = sim.refresh_forces(st, sim.rebuild(st, grid=sim.grid_for(st.cell),
+                                                max_neighbors=64), ensemble=ens)
+        kw["pressure"] = float(pressure_of(st))
+    carried = {"aux": _default_aux(ens, st)}
 
     def run(state):
-        state, _, flags = sim.run_async(state, steps, refresh=False)
+        state, carried["aux"], flags = sim.run_async(
+            state, steps, ensemble=ens, aux=carried["aux"], refresh=False, **kw)
         return state, flags
 
     st, fl = run(st)  # warm-up at the measured shapes
@@ -153,7 +176,7 @@ def main(argv=None) -> int:
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trace_path = out / "main_path_trace.json"
+    trace_path = out / f"main_path_{ens}_trace.json"
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())["traceEvents"]
     span_us, busy_us = device_window(events)
@@ -169,7 +192,10 @@ def main(argv=None) -> int:
             rows.append((us / steps / 1e3, evt.count / steps, evt.key))
     rows.sort(reverse=True)
     idle = 1.0 - busy_us / span_us
-    print(f"prof: {card}; {n} atoms, level 16, fp32, J=64, {steps} steps")
+    virial = args.virial or ens.startswith("npt")
+    print(f"prof: {card}; {n} atoms, level 16, fp32, J=64, {steps} steps, {ens}"
+          + (f" at {kw['pressure']:.1f} bar" if "pressure" in kw else "")
+          + f", virial {'on' if virial else 'off'}")
     print(f"prof: step {step_ms:.4f} ms (profiler off), {n / step_ms * 1e3:.1f} atom-steps/s")
     print(f"prof: traced window {span_us / steps / 1e3:.4f} ms/step, device busy "
           f"{busy_us / steps / 1e3:.4f} ms/step, idle share {idle:.4f}, "
@@ -178,7 +204,7 @@ def main(argv=None) -> int:
     for ms, count, key in rows[:25]:
         print(f"prof: {ms:12.5f}  {count:12.2f}  {key[:100]}")
     print(json.dumps({
-        "card": card, "atoms": n, "step_ms": step_ms,
+        "card": card, "atoms": n, "ensemble": ens, "virial": virial, "step_ms": step_ms,
         "traced_ms_per_step": span_us / steps / 1e3,
         "busy_ms_per_step": busy_us / steps / 1e3, "idle_share": idle,
         "kernels_per_step": launches,

@@ -55,6 +55,8 @@ from mtp_tpu_torch.ops.neighbors import (
 from mtp_tpu_torch.utils import units
 from mtp_tpu_torch.utils.convert import model_from_jax
 
+from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
 
 
@@ -119,7 +121,13 @@ def test_candidate_vectors_match_golden(fixture, request):
     m = request.getfixturevalue(fixture)
     pos, types, cell = _box(1, species=m.species_count)
     g = golden.compute(m, pos, types, cell=cell, compute_grades=True)
-    tm = model_from_jax(JaxModel.from_data(m, dtype=jnp.float64), device="cpu")
+    jm = JaxModel.from_data(m, dtype=jnp.float64)
+    # the inputs are float64 before anything is compared (model_from_jax
+    # also refuses narrower coefficient arrays)
+    for a in (jm.coeffs.radial_coeffs, jm.coeffs.species_coeffs, jm.coeffs.moment_coeffs):
+        assert np.asarray(a).dtype == np.float64
+    assert all(np.asarray(a).dtype == np.float64 for a in (pos, cell))
+    tm = model_from_jax(jm, device="cpu")
     nl = _list(tm, pos, cell)
     b, e = candidate_vectors(tm, _t(pos), _t(types, torch.int32), nl.idx, _t(cell))
     assert b.shape == g["energy_ders_wrt_coeffs"].shape == (len(pos), m.coeff_count)
@@ -355,6 +363,6 @@ def test_monitor_refuses_a_model_without_mvs_and_other_ensembles(al_models, mtp_
         ExtrapolationMonitor(model_from_jax(JaxModel.from_data(mtp_level8, dtype=jnp.float64), device="cpu"))
     pos, types, masses, cell, vel = _md_start()
     st = init_state(pos, types, masses, cell, velocities=vel, dtype=F64, device="cpu")
-    with pytest.raises(ValueError, match="nvt"):
+    with pytest.raises(ValueError, match="unknown ensemble"):
         run_with_extrapolation(Simulation(tm, max_neighbors=64, skin=0.6), ExtrapolationMonitor(tm),
-                               st, 5, al_every=5, ensemble="nvt")
+                               st, 5, al_every=5, ensemble="nvx")

@@ -16,7 +16,9 @@ is ~5e-7 eV, ~1.2e-6 eV/A and ~4e-6 eV/A for these quantities. K5 as K4 and
 K2 for its site energies and pair forces, and 1e-5 of the largest entry for
 its basis members and radial rows (sums of up to ~60 terms of scale ~10);
 K6 1e-5 of the largest basic moment; K7 (the gradient of the modular energy
-path) 5e-5 eV/A.
+path) 5e-5 eV/A. An NPT block of 20 steps on the card against the same block
+on the CPU (the plain twins, fp32 too): positions 1e-4 A, the cell 1e-5 of
+its largest entry, the barostat strain rate 1e-3 of its value.
 """
 
 import numpy as np
@@ -25,7 +27,7 @@ import torch
 
 from mtp_tpu_torch.io.basis_gen import make_mtp
 from mtp_tpu_torch.kernels import main_path_kernels
-from mtp_tpu_torch.md.simulation import Simulation, make_lattice
+from mtp_tpu_torch.md.simulation import Simulation, _default_aux, make_lattice
 from mtp_tpu_torch.md.state import init_state, thermalize
 from mtp_tpu_torch.models.mtp import MTPModel, _window_geometry, window_constants
 from mtp_tpu_torch.ops import fused_basic as fb
@@ -351,3 +353,60 @@ def test_al_wrappers_refuse_bad_operands(dev):
         fb.basic_moments_fused(args[0], args[1], args[2][:, :-1].contiguous(), *args[3:6])
     with pytest.raises(ValueError):
         fb.basic_moments_fused(args[0], args[1], args[2], args[3][: n - 1], *args[4:6])
+
+
+def _alloy(dev):
+    """The 864-atom two-species level-16 box at 300 K, fp32, with masses."""
+    m = make_mtp(16, species_count=2, seed=1)
+    pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6), type_pattern=(0, 1))
+    masses = np.where(types == 0, 58.693, 26.98)
+    st = init_state(pos, types, masses, cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    return m, st
+
+
+def test_npt_block_matches_its_plain_twin(dev):
+    """20 NPT steps (one block) on the card, through K1-K4, against the same
+    block on the CPU, where every wrapper runs its plain twin."""
+    m, st = _alloy(dev)
+    kw = dict(ensemble="npt", dt=0.001, temperature=300.0, pressure=0.0, tdamp=0.1, pdamp=1.0)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = MTPModel.from_data(m, device=where, dtype=torch.float32)
+        sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=20)
+        ks = main_path_kernels()
+        before = [(kk.launches, kk.plain_calls) for kk in ks]
+        s0 = init_state(*(getattr(st, k).cpu().numpy() for k in ("positions", "types", "masses",
+                                                               "cell")),
+                        velocities=st.velocities.cpu().numpy(), device=where)
+        s1, aux, fl = sim.run_async(s0, 20, **kw)
+        assert not bool(fl)
+        if where.type == "cuda":
+            for kk, (l0, p0) in zip(ks, before):
+                assert kk.launches > l0 and kk.plain_calls == p0, kk.name
+        out[where.type] = (s1, aux)
+    (a, aux_a), (b, aux_b) = out["cuda"], out["cpu"]
+    assert _err(a.positions.cpu(), b.positions) < 1e-4
+    assert _err(a.cell.cpu(), b.cell) / float(b.cell.abs().max()) < 1e-5
+    assert abs(float(aux_a.baro_v) - float(aux_b.baro_v)) < 1e-3 * abs(float(aux_b.baro_v))
+
+
+@pytest.mark.parametrize("ensemble", ["nve", "nvt", "langevin", "npt", "npt-aniso", "npt-tri"])
+def test_ensemble_block_reads_nothing_back(dev, ensemble):
+    """A block of every ensemble (`Simulation.steps`) runs under
+    ``set_sync_debug_mode("error")``: no step reads the device from the
+    host."""
+    m, st = _alloy(dev)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10)
+    nl = sim.rebuild(st, grid=sim.grid_for(st.cell), max_neighbors=64)
+    st = sim.refresh_forces(st, nl, ensemble=ensemble)
+    aux = _default_aux(ensemble, st)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux, stale = sim.steps(st, aux, nl, ensemble=ensemble, n_steps=5, dt=0.001)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not bool(stale) and int(out.step) == int(st.step) + 5
+    assert bool(out.positions.isfinite().all())

@@ -49,6 +49,7 @@ def test_import_leaves_jax_out():
         "import mtp_tpu_torch.utils.prof, chip_smoke\n"
         "import mtp_tpu_torch.al.driver, mtp_tpu_torch.al.maxvol, mtp_tpu_torch.io.cfg_file\n"
         "import mtp_tpu_torch.ops.fused_basic, mtp_tpu_torch.ops.fused_candidates\n"
+        "import mtp_tpu_torch.md.minimize, mtp_tpu_torch.md.output, mtp_tpu_torch.io.lammps_data\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mtp_tpu' or m.startswith('mtp_tpu.'))\n"
         "print(bad)\n"

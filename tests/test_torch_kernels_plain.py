@@ -53,6 +53,8 @@ from mtp_tpu_torch.ops.window_disp import inverse_cell, window_geometry
 from mtp_tpu_torch.ops.window_giveback import mirror_offsets, window_giveback
 from mtp_tpu_torch.utils.convert import model_from_jax
 
+from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 TOL = 1e-10
 
 

@@ -26,6 +26,8 @@ from mtp_tpu_torch.md.state import (
 from mtp_tpu_torch.utils import units
 from mtp_tpu_torch.utils.convert import model_from_jax
 
+from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 F64 = torch.float64
 TOL = 1e-10
 
@@ -127,8 +129,8 @@ def test_run_async_returns_the_last_list_and_permutes_back(alloy):
     assert torch.equal(out.types, st.types) and torch.equal(out.masses, st.masses)
     # the last block (1 step) was built from the state after step 3
     assert float((nl.reference_positions - out.positions).abs().max()) < 0.01
-    with pytest.raises(ValueError):
-        sim.run_async(st, 1, ensemble="nvt")
+    with pytest.raises(ValueError, match="unknown ensemble"):
+        sim.run_async(st, 1, ensemble="nvx")
 
 
 def test_cpu_run_launches_no_kernel(alloy):

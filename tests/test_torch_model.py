@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from mtp_tpu.models.mtp import MTPModel as JaxModel
+from mtp_tpu.models.mtp import mtp_energy as energy_jax
 from mtp_tpu.models.mtp import mtp_energy_forces as ef_jax
 from mtp_tpu.utils import golden
 from mtp_tpu_torch.io.basis_gen import make_mtp
@@ -18,6 +19,7 @@ from mtp_tpu_torch.io.mtp_file import save_mtp
 from mtp_tpu_torch.md.simulation import make_lattice
 from mtp_tpu_torch.models.mtp import (
     MTPModel,
+    mtp_energy,
     mtp_energy_forces,
     mtp_energy_forces_window,
     mtp_energy_window,
@@ -29,6 +31,8 @@ from mtp_tpu_torch.ops.neighbors import (
     grid_shape,
 )
 from mtp_tpu_torch.utils.convert import model_from_jax
+
+from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-10
 
@@ -83,6 +87,24 @@ def test_plain_path_matches_golden_and_jax_xla(case):
         backend="xla",
     )
     _assert_close(out, {k: np.asarray(v) for k, v in oj.items()})
+
+
+def test_energy_only_matches_jax_and_the_force_path(case):
+    """`mtp_energy` (no forces) against the JAX `mtp_energy` on the same
+    list, and against the energy of the port's own force path."""
+    m, pos, types, cell, g = case
+    model = MTPModel.from_data(m, device="cpu", dtype=torch.float64)
+    nl, _ = _lists(m, pos, cell)
+    ty = _t(types, torch.int32)
+    e = float(mtp_energy(model, _t(pos), ty, nl.idx, _t(cell)))
+    jm = JaxModel.from_data(m, dtype=jnp.float64)
+    ej = energy_jax(jm.schedule, jm.coeffs, jnp.asarray(pos), jnp.asarray(types),
+                    jnp.asarray(nl.idx.numpy()), jnp.asarray(cell))
+    assert np.asarray(ej).dtype == np.float64
+    assert abs(e - float(ej)) < TOL
+    ef = mtp_energy_forces(model, _t(pos), ty, nl.idx, _t(cell), nl.mirror)
+    assert abs(e - float(ef["energy"])) < TOL
+    assert abs(e - g["energy"]) < TOL
 
 
 def test_window_path_matches_golden(case):
@@ -177,3 +199,15 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_model_from_jax_refuses_narrower_coefficients():
+    """A float32 JAX model cannot become a float64 port model: its
+    coefficients would be widened float32 values. In its own precision it
+    converts."""
+    jm32 = JaxModel.from_data(make_mtp(8, seed=0), dtype=jnp.float32)
+    assert np.asarray(jm32.coeffs.radial_coeffs).dtype == np.float32
+    with pytest.raises(ValueError, match="narrower than the torch.float64"):
+        model_from_jax(jm32, device="cpu", dtype=torch.float64)
+    tm = model_from_jax(jm32, device="cpu", dtype=torch.float32)
+    assert tm.coeffs.radial_coeffs.dtype == torch.float32

@@ -20,6 +20,8 @@ from mtp_tpu_torch.ops.neighbors import (
     needs_rebuild,
 )
 
+from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 CUT = 5.6
 
 
