@@ -64,9 +64,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``run_with_extrapolation`` under NPT for 60 steps graded every 30 on
    phase 7's MVS, launching K5 once per grade step.
 
-Prints one JSON line of the ensembles' numbers, then one of all seven
-kernels, before the last line, and as the last line ``{"ok": true,
-"device": {...}}``. Exits non-zero without a result
+3b. Oracle repeatability (after phase 3): the float64 plain path
+   (``mtp_energy_forces`` and ``al.grades.candidate_vectors``) twice on the
+   phase-3 box; energy, site energies, forces, virial and candidate vectors
+   must be bit-equal (``torch.equal``).
+
+9. Training and the lifecycle at full width (level 16, float64 on the
+   card): 96 configurations of the 108-atom fcc box labeled by a level-16
+   teacher on the plain path (two cross-checked against
+   ``mtp_tpu_torch.utils.golden``), ``make_dataset`` (J = 48),
+   ``linear_warm_start`` and 30 ``fit`` steps of a level-16 student from
+   its minted coefficients at lr 1e-4 (from the warm start Adam raises the
+   loss, in the JAX fit as in the port); every loss finite, the last below
+   the first, no kernel launched during the fit; the first 2 steps on 8
+   configurations give the card's losses on the CPU too. Then the
+   student's MVS from its float64 candidate vectors of the training set,
+   ``save_mtp`` with the MVS, ``MTPModel.load`` in fp32,
+   and ``run_with_extrapolation`` under NVT at 600 K on the 864-atom box
+   (200 steps, graded every 20) writing the graded configurations to a
+   ``.cfg`` through the native row formatter, read back; K1-K5 launched, no
+   plain twin called.
+10. The accuracy gate at 32,000 atoms (``mtp_tpu_torch.utils.accuracy_gate``):
+   the fp32 kernel path against the float64 plain path on the card, held to
+   the gates of phase 3, and the plain fp32 path beside it (the rounding
+   floor), both against one oracle, with its time and peak device memory.
+
+Prints one JSON line of the ensembles' numbers, one of training and the
+gate, then one of all seven kernels, before the last line, and as the last
+line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present or the package is missing.
 """
 
@@ -75,6 +100,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -901,6 +927,211 @@ def ensembles_phase(dev, card, m2, p32, c32, ty, model, state, al_model, al_stat
     return report
 
 
+def oracle_repeat_phase(model64, p64, ty, c64, nl64):
+    """Phase 3b: the float64 plain path twice, bit for bit."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import candidate_vectors
+    from mtp_tpu_torch.models.mtp import mtp_energy_forces
+
+    def once():
+        out = mtp_energy_forces(model64, p64, ty, nl64.idx, c64, nl64.mirror)
+        b, e_b = candidate_vectors(model64, p64, ty, nl64.idx, c64)
+        return dict(energy=out["energy"], site_energies=out["site_energies"],
+                    forces=out["forces"], virial=out["virial"], b=b, energy_of_b=e_b)
+
+    first, second = once(), once()
+    torch_sync()
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    for k in differ:
+        print(f"[3b oracle] {k} differs between two runs: max|d| = "
+              f"{max_err(first[k], second[k]):.3e}")
+    print(f"[3b oracle] f64 plain path twice on the phase-3 box: "
+          f"{'bit-equal' if not differ else 'NOT bit-equal'} in "
+          f"{', '.join(first)}")
+    check(not differ, f"the float64 plain path does not repeat: {differ[0] if differ else ''}")
+    return dict(bit_equal=not differ, quantities=list(first))
+
+
+def events_ms(fn):
+    """(result, ms) of one call of `fn`, by CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    b.synchronize()
+    return res, a.elapsed_time(b)
+
+
+# lr 1e-4: at 2e-3 Adam overshoots on these labels (`utils/prof.py --fit` prints both)
+TRAIN = dict(n_configs=96, j=48, steps=30, lr=1e-4, force_weight=0.1)
+LIFE = dict(reps=(6, 6, 6), temperature=600.0, steps=200, al_every=20)
+N_GOLDEN = 2  # labels cross-checked against golden
+
+
+def training_phase(dev, card, out_dir):
+    """Phase 9: label, fit, MVS, save, load, and MD with grading. Returns the
+    report; `out_dir` receives the potential and the selected configurations."""
+    import dataclasses
+
+    import torch
+
+    from mtp_tpu_torch.al.driver import ExtrapolationMonitor, run_with_extrapolation
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.io.cfg_file import read_cfgs
+    from mtp_tpu_torch.io.mtp_file import save_mtp
+    from mtp_tpu_torch.kernels import all_kernels, reset_counts
+    from mtp_tpu_torch.md.simulation import Simulation, make_lattice
+    from mtp_tpu_torch.md.state import init_state, thermalize
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.train.fit import (fit, linear_warm_start, loss_fn, make_dataset,
+                                         training_set)
+    from mtp_tpu_torch.utils import golden, native
+
+    report = {"card": card}
+    teacher = make_mtp(16, species_count=1, seed=11)
+    t0 = time.perf_counter()
+    configs = training_set(MTPModel.from_data(teacher, device=dev, dtype=torch.float64),
+                           TRAIN["n_configs"])
+    types, cell = configs[0].types, configs[0].cell
+    boxes = [c.positions for c in configs]
+    print(f"[9 train] labeled {len(configs)} x {len(types)} atoms with a level-16 teacher "
+          f"(f64 plain path): {time.perf_counter() - t0:.2f} s")
+    for c in configs[:N_GOLDEN]:
+        g = golden.compute(teacher, c.positions, c.types, cell)
+        de = abs(c.energy - g["energy"]) / len(types)
+        df = float(np.abs(c.forces - g["forces"]).max())
+        print(f"[9 train] vs golden: dE/atom {de:.3e} (tol 1e-9), max|dF| {df:.3e} (tol 1e-8)")
+        check(de <= 1e-9 and df <= 1e-8, "labels disagree with golden")
+
+    student = make_mtp(16, species_count=1, seed=99)
+    s64 = MTPModel.from_data(student, device=dev, dtype=torch.float64)
+    data = make_dataset(configs, student.max_dist, max_neighbors=TRAIN["j"], device=dev)
+    kw = dict(force_weight=TRAIN["force_weight"])
+    reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ws, ws_ms = events_ms(lambda: linear_warm_start(s64.schedule, s64.coeffs, data))
+    # Adam starts from the minted student: from the warm start, which fits
+    # these labels almost exactly, Adam raises the loss, in the JAX fit as in
+    # the port (tests/test_torch_train.py::test_adam_climbs_from_a_level16_warm_start)
+    (coeffs, losses), fit_ms = events_ms(lambda: fit(
+        s64.schedule, s64.coeffs, data, steps=TRAIN["steps"], learning_rate=TRAIN["lr"],
+        warm_start=False, **kw))
+    launched = {k.name: (k.launches, k.plain_calls) for k in all_kernels()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    l_ws = float(loss_fn(s64.schedule, ws, data, **kw))
+    l_final = float(loss_fn(s64.schedule, coeffs, data, **kw))
+    print(f"[9 train] {TRAIN['n_configs']} configs x {len(types)} atoms, level 16, J="
+          f"{TRAIN['j']}, f64: warm start {ws_ms:.2f} ms (loss {l_ws:.6e}, max|moment coeff| "
+          f"{float(ws.moment_coeffs.abs().max()):.4g}); {TRAIN['steps']} Adam steps "
+          f"{fit_ms / TRAIN['steps']:.2f} ms per step (the final evaluation included), peak "
+          f"memory {'not measured' if peak is None else f'{peak / 2**30:.3f} GiB'} on {card}")
+    print(f"[9 train] loss {losses[0]:.6e} -> {losses[-1]:.6e} (returned coefficients "
+          f"{l_final:.6e}); launches and plain calls during warm start and fit {launched}")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], "the fit did not descend")
+    check(all(v == (0, 0) for v in launched.values()), "a kernel ran during the fit")
+
+    # the first 2 steps on 8 configurations: the card's losses on the CPU
+    sub = make_dataset(configs[:8], student.max_dist, max_neighbors=TRAIN["j"], device=dev)
+    sub_cpu = make_dataset(configs[:8], student.max_dist, max_neighbors=TRAIN["j"],
+                           device="cpu")
+    s_cpu = MTPModel.from_data(student, device="cpu", dtype=torch.float64)
+    _, l_dev = fit(s64.schedule, s64.coeffs, sub, steps=2, learning_rate=TRAIN["lr"],
+                   warm_start=False, **kw)
+    _, l_cpu = fit(s_cpu.schedule, s_cpu.coeffs, sub_cpu, steps=2,
+                   learning_rate=TRAIN["lr"], warm_start=False, **kw)
+    rel = float(np.abs(l_dev - l_cpu).max() / np.abs(l_cpu).max())
+    print(f"[9 train] 2 steps on 8 configs: card {l_dev.tolist()} CPU {l_cpu.tolist()} "
+          f"relative {rel:.3e} (tol 1e-9)")
+    check(rel <= 1e-9, "the fit on the card disagrees with the CPU")
+
+    # the lifecycle: MVS, save, load, MD with grading and selection
+    trained = dataclasses.replace(
+        student, radial_coeffs=coeffs.radial_coeffs.cpu().numpy(),
+        species_coeffs=coeffs.species_coeffs.cpu().numpy(),
+        moment_coeffs=coeffs.moment_coeffs.cpu().numpy())
+    t0 = time.perf_counter()
+    trained.mvs = mvs_from(MTPModel.from_data(trained, device=dev, dtype=torch.float64),
+                           boxes, cell, types, trained.max_dist)
+    path = out_dir / "trained.mtp"
+    save_mtp(str(path), trained)
+    model = MTPModel.load(str(path), device=dev, dtype=torch.float32)
+    print(f"[9 lifecycle] MVS from {len(boxes)} x {len(types)} f64 candidate vectors: P="
+          f"{model.inverse_active_set.shape[0]}, {time.perf_counter() - t0:.2f} s; saved and "
+          f"loaded {path.name}")
+    pos, mtypes, mcell = make_lattice("fcc", 4.0, LIFE["reps"])
+    n = len(pos)
+    st = init_state(pos, mtypes, np.full(n, 58.693), mcell, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    st = thermalize(gen, st, LIFE["temperature"])
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=20)
+    cfg_path = out_dir / "selected.cfg"
+    mon = ExtrapolationMonitor(model, select_threshold=0.0, output_path=str(cfg_path))
+    reset_counts()
+    t0 = time.perf_counter()
+    st = run_with_extrapolation(sim, mon, st, LIFE["steps"], al_every=LIFE["al_every"],
+                                ensemble="nvt", dt=0.001, temperature=LIFE["temperature"],
+                                tdamp=0.1)
+    mon.close()
+    torch_sync()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in all_kernels()}
+    plain = sum(k.plain_calls for k in all_kernels())
+    selected = read_cfgs(str(cfg_path))
+    n_evals = LIFE["steps"] // LIFE["al_every"] + 1
+    print(f"[9 lifecycle] {n} atoms NVT {LIFE['temperature']:.0f} K, {LIFE['steps']} steps "
+          f"graded every {LIFE['al_every']}: {wall:.2f} s, max grade {mon.max_grade:.4f}, "
+          f"{len(selected)} configurations written (native row formatter: "
+          f"{native.available()}, flags {native.build_flags(native.compiler())}); launches "
+          f"{launches}, plain calls {plain}")
+    check(bool(st.positions.isfinite().all()), "non-finite positions in the lifecycle MD")
+    check(all(launches[k.name] > 0 for k in all_kernels()[:5]), "K1-K5 not all launched")
+    check(launches["candidates_mega"] == n_evals, "K5 not once per grade step")
+    check(plain == 0, "a plain twin ran in the lifecycle MD")
+    check(native.available(), "the native library did not load")
+    check(len(selected) == n_evals and all(len(c.positions) == n and c.grades is not None
+                                           for c in selected), "selected .cfg read-back")
+    report.update(
+        n_configs=TRAIN["n_configs"], steps=TRAIN["steps"], warm_start_ms=ws_ms,
+        warm_start_loss=l_ws,
+        fit_ms_per_step=fit_ms / TRAIN["steps"], fit_peak_bytes=peak,
+        losses=[float(v) for v in losses], cpu_vs_card_rel=rel,
+        lifecycle=dict(atoms=n, steps=LIFE["steps"], max_grade=mon.max_grade,
+                       selected=len(selected), k5_launches=launches["candidates_mega"]),
+    )
+    return report
+
+
+def gate_phase(dev, card):
+    """Phase 10: the accuracy gate at 32,000 atoms, the kernel path and the
+    plain fp32 floor."""
+    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.utils import accuracy_gate
+
+    f64 = accuracy_gate.oracle(device=dev)
+    stats = f64[1]
+    print(f"[10 gate] f64 oracle {stats['oracle_ms']:.1f} ms, peak device memory "
+          f"{stats['oracle_peak_bytes'] / 2**30:.3f} GiB on {card}")
+    out = dict(stats, card=card)
+    for side, plain in (("fp32_kernel_path", False), ("fp32_plain_floor", True)):
+        reset_counts()
+        result, _ = accuracy_gate.run(device=dev, fp32_plain=plain, f64=f64)
+        launches = {k.name: (k.launches, k.plain_calls) for k in main_path_kernels()}
+        print(f"[10 gate] {side}: launches and plain calls {launches}")
+        print(f"[10 gate] {json.dumps(result)}")
+        if not plain:
+            check(all(v[0] > 0 and v[1] == 0 for v in launches.values()),
+                  "the gate's fp32 side did not run the kernel path")
+            bad = accuracy_gate.failed_gates(result)
+            check(not bad, f"accuracy gate at 32k: {bad}")
+        out[side] = result
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -984,6 +1215,9 @@ def main() -> int:
           f"max|dW|={dw:.3e} (gate {GATE_DW:.0e})")
     check(de < GATE_DE and df < GATE_DF and dw < GATE_DW, "fp32 path vs f64 gate")
 
+    # ---- 3b. the float64 oracle repeats bit for bit
+    oracle_report = oracle_repeat_phase(model64, p64, ty, c64, nl64)
+
     # ---- 4. main path (bench.py configuration)
     m = make_mtp(16, species_count=1, seed=SEED)
     model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
@@ -1046,6 +1280,11 @@ def main() -> int:
     ens_report = ensembles_phase(dev, card, m2, p32, c32, ty, model, state, al_model,
                                  al_state)
 
+    # ---- 9. training and the lifecycle; 10. the accuracy gate at 32k
+    with tempfile.TemporaryDirectory() as tmp:
+        train_report = training_phase(dev, card, Path(tmp))
+    gate_report = gate_phase(dev, card)
+
     # ---- 5, continued: device time by stage kernel. Taken after phase 7:
     # a torch.profiler session slows the host-bound runs that follow it in
     # the process and widens their spread (`python -m mtp_tpu_torch.utils.prof
@@ -1069,6 +1308,8 @@ def main() -> int:
     rows += rows7
     print(card)
     print(json.dumps({"ensembles": ens_report}))
+    print(json.dumps({"oracle": oracle_report, "training": train_report,
+                      "accuracy_gate": gate_report}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

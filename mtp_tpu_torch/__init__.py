@@ -17,8 +17,25 @@ md       MD state, the integrators (NVE, NVT, Langevin, MTK NPT), the
          simulation driver, FIRE minimization, thermo/XYZ/checkpoint output
 al       MaxVol extrapolation grades, active-set construction and MD
          with grade evaluation (active learning)
-utils    units, weight and integrator-state conversion from ``mtp_tpu``,
-         the device profiler
+train    coefficient fitting on energy/force data (``train.fit``: padded
+         datasets, the linear warm start, Adam on the float64 plain path)
+utils    units, weight, coefficient and integrator-state conversion from
+         ``mtp_tpu``, the device profiler, the native host library
+         (``native``: cell list, ``.cfg`` rows), the float64 golden engine
+         (``golden``) and the accuracy gate (``python -m
+         mtp_tpu_torch.utils.accuracy_gate``)
+
+A short fit (``device="cpu"`` here; the default is the card)::
+
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.io.cfg_file import read_cfgs
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.train.fit import fit, make_dataset
+
+    m = make_mtp(8, seed=0)
+    model = MTPModel.from_data(m, device="cpu", dtype=torch.float64)
+    data = make_dataset(read_cfgs("train.cfg"), m.max_dist, max_neighbors=48, device="cpu")
+    coeffs, losses = fit(model.schedule, model.coeffs, data, steps=60, learning_rate=1e-4)
 """
 
 from mtp_tpu_torch.io.mtp_file import load_mtp, save_mtp  # noqa: F401

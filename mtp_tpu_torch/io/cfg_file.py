@@ -16,8 +16,11 @@ pair_mtp_extrapolation.cpp:401-479):
     END_CFG
 
 The reader also parses the optional Energy / PlusStress sections, so MLIP
-training sets round-trip. The atom rows are formatted in Python (the JAX
-package's native formatter writes the same text, ``tests/test_native.py``).
+training sets round-trip. Rows without forces (the selection stream, up to
+millions of atoms) go through the native row formatter
+(:func:`mtp_tpu_torch.utils.native.format_cfg_atoms`, which writes the same
+text in Python on a host with no C++ compiler), as the JAX writer does;
+rows with forces are formatted in Python.
 """
 
 from __future__ import annotations
@@ -69,11 +72,15 @@ def lammps_lower_triangular(cell):
 
 
 def _atom_rows(positions, types, grades, forces):
+    if forces is None:
+        # fast path: the native row formatter (million-atom selection streams)
+        from mtp_tpu_torch.utils.native import format_cfg_atoms
+
+        return [format_cfg_atoms(positions, types, grades).rstrip("\n")]
     rows = []
     for i in range(len(positions)):
         row = f"{i + 1}\t{int(types[i])}\t{positions[i, 0]:.6f}\t{positions[i, 1]:.6f}\t{positions[i, 2]:.6f}"
-        if forces is not None:
-            row += f"\t{forces[i, 0]:.6f}\t{forces[i, 1]:.6f}\t{forces[i, 2]:.6f}"
+        row += f"\t{forces[i, 0]:.6f}\t{forces[i, 1]:.6f}\t{forces[i, 2]:.6f}"
         if grades is not None:
             row += f"\t{float(grades[i]):.5f}"
         rows.append(row)

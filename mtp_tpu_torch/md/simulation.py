@@ -232,10 +232,10 @@ class Simulation:
         cut_skin = self.model.cutoff + self.skin
         inv_ref = inverse_cell(ref_cell)
         ref_frac = cell_product(ref_positions.unbind(-1), inv_ref)
-        ref_widths = 1.0 / torch.linalg.vector_norm(inv_ref, dim=1)
+        ref_widths = 1.0 / torch.linalg.vector_norm(inv_ref, dim=0)  # plane spacings
 
         def geometry(cell):
-            widths = 1.0 / torch.linalg.vector_norm(inverse_cell(cell), dim=1)
+            widths = 1.0 / torch.linalg.vector_norm(inverse_cell(cell), dim=0)
             shrink = torch.clamp(1.0 - torch.min(widths / ref_widths), min=0.0) * cut_skin
             return torch.stack(cell_product(ref_frac, cell), dim=-1), shrink
 

@@ -114,19 +114,10 @@ def basic_moments_vjp(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, gamm
 
 def contract_dag_t(sched, m_basic_t):
     """Moments (M, N) from basic moments (B, N), wave by wave; duplicate
-    targets accumulate (the feature-major twin of
+    targets sum in a fixed order (the feature-major twin of
     :func:`~mtp_tpu_torch.ops.moments.contract_dag`). Index operations, no
     matrix product."""
-    n = m_basic_t.shape[1]
-    dev = m_basic_t.device
-    m = torch.cat(
-        [m_basic_t, torch.zeros((sched.alpha_moments_count - sched.basic_count, n),
-                                dtype=m_basic_t.dtype, device=dev)]
-    )
-    for wave in sched.waves():
-        a0, a1, mult, a3 = (torch.as_tensor(wave[:, k], device=dev) for k in range(4))
-        m = m.index_add(0, a3, m[a0] * m[a1] * mult.to(m.dtype)[:, None])
-    return m
+    return moments.contract_moments(sched, m_basic_t, 0)
 
 
 def site_energies_fused(tables, coeffs, dispT, mask, itypes, jtypes_t):

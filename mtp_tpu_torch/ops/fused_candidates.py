@@ -24,8 +24,10 @@ kernel, or it raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import types as _types
 
+import numpy as np
 import torch
 
 from mtp_tpu_torch.kernels._build import Kernel
@@ -43,6 +45,17 @@ K5 = Kernel(
     replaces="mtp_tpu/ops/pallas_moments.py:589",
     argtypes=(_P,) * 14 + (_I,) * 12 + (_F,) * 3 + (_P,),
 )
+
+
+@functools.lru_cache(maxsize=None)
+def _mu_plan_on(sched, device: torch.device):
+    """The basic moments grouped by radial function, built once per schedule
+    and device: (perm, sizes), where ``perm`` lists the basic moments of
+    mu = 0, 1, ... in table order and ``sizes[mu]`` counts those of mu."""
+    mu = sched.basic[:, 0]
+    perm = np.argsort(mu, kind="stable")
+    sizes = [int((mu == k).sum()) for k in range(sched.radial_funcs_count)]
+    return torch.as_tensor(perm, device=device), sizes
 
 
 def candidate_terms(sched, radial_coeffs, disp, mask, itypes, jtypes, xi_full, esp):
@@ -73,13 +86,12 @@ def candidate_terms(sched, radial_coeffs, disp, mask, itypes, jtypes, xi_full, e
     m = m.detach()
     basis_members = m[:, torch.as_tensor(sched.mapping, device=m.device)]
 
-    n, j = mask.shape
     S, MU, RB = sched.species_count, sched.radial_funcs_count, sched.radial_basis_size
-    mu_k = torch.as_tensor(sched.basic[:, 0], device=m.device)
-    # Gmu[n, j, mu] = sum_{k: mu_k = mu} gamma[n, k] U[n, j, k]
-    gmu = torch.zeros((n, j, MU), dtype=m.dtype, device=m.device).index_add_(
-        2, mu_k, gamma[:, None, :] * aux["U"].detach()
-    )
+    # Gmu[n, j, mu] = sum_{k: mu_k = mu} gamma[n, k] U[n, j, k], each mu's
+    # terms summed in one fixed order (no index_add: atomics on the card)
+    perm, sizes = _mu_plan_on(sched, m.device)
+    gu = (gamma[:, None, :] * aux["U"].detach())[..., perm]
+    gmu = torch.stack([seg.sum(-1) for seg in gu.split(sizes, dim=-1)], dim=-1)
     jt_w = torch.nn.functional.one_hot(jtypes, S).to(m.dtype) * w[..., None]  # (N, J, S)
     cheb = aux["cheb"].detach()
     rad = torch.sum(

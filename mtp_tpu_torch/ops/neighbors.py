@@ -66,9 +66,12 @@ def mirror_permutation(idx):
 
 
 def perpendicular_widths(cell: np.ndarray) -> np.ndarray:
-    """Perpendicular widths of a (row-vector) cell matrix."""
+    """Perpendicular widths of a (row-vector) cell matrix: the spacing of
+    the planes of constant fractional coordinate a is 1 / |inv[:, a]| (the
+    columns of the inverse are the reciprocal vectors; the JAX package takes
+    its rows, which is wrong for a tilted cell)."""
     inv = np.linalg.inv(np.asarray(cell, dtype=np.float64))
-    return 1.0 / np.linalg.norm(inv, axis=1)
+    return 1.0 / np.linalg.norm(inv, axis=0)
 
 
 def check_cell(cell, cutoff: float) -> None:
@@ -133,7 +136,7 @@ def build_neighbor_list(
     # the grid is static but the cell is a run-time value: flag any binned
     # dimension whose bin width has shrunk below the cutoff (relative
     # epsilon: commensurate boxes have width/g == cutoff exactly)
-    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=1)
+    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
     geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for a, g in enumerate(grid):
         if g >= 3:

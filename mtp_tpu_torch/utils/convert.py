@@ -1,5 +1,5 @@
-"""Carry a ``mtp_tpu`` model's weights, and an integrator's state, into the
-port.
+"""Carry a ``mtp_tpu`` model's weights, coefficients alone, and an
+integrator's state, into the port.
 
 The conversions read the JAX objects' arrays through ``numpy.asarray``, so
 this module imports no ``jax``: the tests pass one model, or one trajectory's
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from mtp_tpu_torch.md import integrators as itg
-from mtp_tpu_torch.models.mtp import MTPModel
+from mtp_tpu_torch.models.mtp import MTPCoeffs, MTPModel
 from mtp_tpu_torch.ops.moments import MTPSchedule
 from mtp_tpu_torch.utils.device import resolve_device
 
@@ -52,6 +52,18 @@ def model_from_jax(jax_model, device="cuda", dtype=torch.float64) -> MTPModel:
         active_set=jax_model.active_set,
         configuration_mode=jax_model.configuration_mode,
     )
+
+
+def coeffs_from_jax(coeffs, device="cuda", dtype=torch.float64) -> MTPCoeffs:
+    """The port's :class:`MTPCoeffs` holding a ``mtp_tpu`` ``MTPCoeffs``'s
+    arrays on `device` in `dtype` (starting points for ``train.fit``).
+    Raises ``ValueError`` if an array is narrower than `dtype`."""
+    dev = resolve_device(device)
+    return MTPCoeffs(*(
+        torch.as_tensor(np.array(_no_narrower(name, getattr(coeffs, name), dtype)),
+                        dtype=dtype, device=dev)
+        for name in ("radial_coeffs", "species_coeffs", "moment_coeffs")
+    ))
 
 
 _AUX_TYPES = {cls.__name__: cls for cls in (itg.NHCAux, itg.NPTAux, itg.NPTAnisoAux)}

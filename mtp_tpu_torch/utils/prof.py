@@ -3,7 +3,7 @@
 
     python -m mtp_tpu_torch.utils.prof [--reps 20] [--blocks 2] [--out DIR] [--al]
                                        [--ensemble {nve,nvt,langevin,npt,npt-tri}]
-                                       [--virial]
+                                       [--virial] [--fit]
 
 Runs the ``bench.py`` configuration (level 16, fp32, J = 64, skin 0.6,
 steps_per_rebuild 30, NVE) on 20^3 fcc cells (--reps) after a 60-step warm-up
@@ -36,6 +36,15 @@ that wait for the device (synchronisations and copies) with their host
 time, from the Chrome traces it writes to --out; then the three untraced
 rounds again, to show what an earlier profiler session in the same
 process does to them.
+
+With ``--fit`` it profiles training instead, at ``chip_smoke.py`` phase 9's
+configuration (``train.fit.training_set``: 96 configurations of the
+108-atom box labeled by a level-16 teacher; a level-16 student, J = 48,
+float64, force weight 0.1, lr 1e-4): the host time of 3 ``fit`` steps
+after a warm-up, then one traced step: its device busy time, idle share,
+kernels and the kernels' device time by name; then the losses of 5 steps
+from the linear warm start (lr 2e-3 and 1e-4) and from the minted student
+(lr 2e-3).
 """
 
 from __future__ import annotations
@@ -97,6 +106,67 @@ def kernel_count(trace_events) -> int:
     return sum(1 for e in trace_events if e.get("ph") == "X" and e.get("cat") == "kernel")
 
 
+def fit_main(args, dev, card) -> int:
+    """The --fit mode (module docstring)."""
+    import torch
+
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.train.fit import fit, make_dataset, training_set
+
+    configs = training_set(MTPModel.from_data(make_mtp(16, seed=11), device=dev,
+                                              dtype=torch.float64), 96)
+    student = MTPModel.from_data(make_mtp(16, seed=99), device=dev, dtype=torch.float64)
+    data = make_dataset(configs, student.cutoff, max_neighbors=48, device=dev)
+
+    def steps(k):
+        return fit(student.schedule, student.coeffs, data, steps=k, learning_rate=1e-4,
+                   force_weight=0.1, warm_start=False)
+
+    steps(1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(3)  # 3 steps and the final evaluation
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    with trace() as prof:
+        steps(1)  # 1 step and the final evaluation
+        torch.cuda.synchronize()
+    path = out / "fit_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    span_us, busy_us = device_window(events)
+    rows = sorted(((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0),
+                  reverse=True)
+    print(f"prof --fit: {card}; 96 x 108 atoms, level 16, J=48, float64")
+    print(f"prof --fit: 3 steps and a final evaluation {host_ms:.3f} ms on the host; traced "
+          f"(1 step and a final evaluation): span {span_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1.0 - busy_us / span_us:.4f}, "
+          f"{kernel_count(events)} kernels")
+    print("prof --fit: device ms  launches  kernel")
+    for ms, count, key in rows[:20]:
+        print(f"prof --fit: {ms:10.4f}  {count:8d}  {key[:100]}")
+    # why phase 9 starts from the minted student at lr 1e-4: 5 steps from
+    # the warm start at 2e-3 and at 1e-4, and from the minted student at 2e-3
+    probe = {f"{start} lr {lr:g}": fit(student.schedule, student.coeffs, data, steps=5,
+                                      learning_rate=lr, force_weight=0.1,
+                                      warm_start=start == "warm start")[1].tolist()
+             for start, lr in (("warm start", 2e-3), ("warm start", 1e-4),
+                               ("minted", 2e-3))}
+    for name, losses in probe.items():
+        print(f"prof --fit: 5 Adam steps from the {name}: losses {losses}")
+    print(json.dumps({
+        "card": card, "host_ms_3_steps": host_ms, "span_ms": span_us / 1e3,
+        "busy_ms": busy_us / 1e3, "kernels": kernel_count(events),
+        "top": [dict(name=k[:100], ms=ms, launches=c) for ms, c, k in rows[:20]],
+        "probe": probe,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -117,6 +187,7 @@ def main(argv=None) -> int:
                     help="ensemble of the measured blocks")
     ap.add_argument("--virial", action="store_true",
                     help="tally the virial every step (the barostats always do)")
+    ap.add_argument("--fit", action="store_true", help="profile training steps instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("prof: no CUDA device")
@@ -130,6 +201,8 @@ def main(argv=None) -> int:
 
     if args.al:
         return al_main(args, dev, card)
+    if args.fit:
+        return fit_main(args, dev, card)
     model = MTPModel.from_data(make_mtp(16, seed=0), device=dev, dtype=torch.float32)
     pos, types, cell = make_lattice("fcc", 4.0, (args.reps,) * 3)
     n = len(pos)

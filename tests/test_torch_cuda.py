@@ -18,7 +18,9 @@ its basis members and radial rows (sums of up to ~60 terms of scale ~10);
 K6 1e-5 of the largest basic moment; K7 (the gradient of the modular energy
 path) 5e-5 eV/A. An NPT block of 20 steps on the card against the same block
 on the CPU (the plain twins, fp32 too): positions 1e-4 A, the cell 1e-5 of
-its largest entry, the barostat strain rate 1e-3 of its value.
+its largest entry, the barostat strain rate 1e-3 of its value. The float64
+plain path (the oracle) bit-equal between runs; two training steps on the
+card against the CPU 1e-9 relative in losses and coefficients.
 """
 
 import numpy as np
@@ -410,3 +412,72 @@ def test_ensemble_block_reads_nothing_back(dev, ensemble):
         torch.cuda.set_sync_debug_mode(0)
     assert not bool(stale) and int(out.step) == int(st.step) + 5
     assert bool(out.positions.isfinite().all())
+
+
+def _f64_plain_outputs(dev):
+    """The float64 plain path's outputs on the phase-3 box of chip_smoke.py
+    (864 atoms, level 16, two species): energy, site energies, forces,
+    virial and candidate vectors."""
+    from mtp_tpu_torch.al.grades import candidate_vectors
+    from mtp_tpu_torch.models.mtp import mtp_energy_forces
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list
+
+    m = make_mtp(16, species_count=2, seed=0)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float64)
+    pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6), type_pattern=(0, 1))
+    pos = pos + np.random.default_rng(0).normal(0.0, 0.1, pos.shape)
+    p = torch.as_tensor(pos, dtype=torch.float64, device=dev)
+    c = torch.as_tensor(cell, dtype=torch.float64, device=dev)
+    t = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    nl = build_neighbor_list(p, c, model.cutoff + 0.6, max_neighbors=64,
+                             grid=grid_shape(cell, model.cutoff + 0.6))
+    out = mtp_energy_forces(model, p, t, nl.idx, c, nl.mirror)
+    b, _ = candidate_vectors(model, p, t, nl.idx, c)
+    torch.cuda.synchronize()
+    return dict(out, b=b)
+
+
+def test_f64_plain_path_repeats_bit_for_bit(dev):
+    """The oracle repeats: two runs bit-equal in every output, and equal to
+    a run under ``torch.use_deterministic_algorithms`` (which swaps any op
+    with a nondeterministic CUDA default for its deterministic version)."""
+    a, b = _f64_plain_outputs(dev), _f64_plain_outputs(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        d = _f64_plain_outputs(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in ("energy", "site_energies", "forces", "virial", "b"):
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], d[k]), k
+
+
+def test_fit_steps_on_the_card_match_the_cpu(dev):
+    """Two Adam steps (level 8, 6 configurations of the 108-atom box labeled
+    by a level-8 teacher, float64, lr 1e-4 from the minted student) twice on
+    the card and once on the CPU: the card's two runs bit-equal, the CPU's
+    losses and coefficients within 1e-9 relative; no kernel launched during
+    the fit."""
+    from mtp_tpu_torch.kernels import all_kernels
+    from mtp_tpu_torch.train.fit import fit, make_dataset, training_set
+
+    teacher = MTPModel.from_data(make_mtp(8, seed=11), device="cpu", dtype=torch.float64)
+    student = make_mtp(8, seed=99)
+    configs = training_set(teacher, 6)
+    runs = []
+    for where in (dev, dev, torch.device("cpu")):
+        model = MTPModel.from_data(student, device=where, dtype=torch.float64)
+        data = make_dataset(configs, student.max_dist, max_neighbors=48, device=where)
+        before = [(k.launches, k.plain_calls) for k in all_kernels()]
+        runs.append(fit(model.schedule, model.coeffs, data, steps=2, learning_rate=1e-4,
+                        force_weight=0.1, warm_start=False))
+        assert [(k.launches, k.plain_calls) for k in all_kernels()] == before
+    (cg, lg), (cg2, lg2), (cc, lc) = runs
+    # the training gradients repeat on the card too
+    assert np.array_equal(lg, lg2)
+    assert all(torch.equal(getattr(cg, n), getattr(cg2, n))
+               for n in ("radial_coeffs", "species_coeffs", "moment_coeffs"))
+    assert np.abs(lg - lc).max() <= 1e-9 * np.abs(lc).max()
+    for name in ("radial_coeffs", "species_coeffs", "moment_coeffs"):
+        want = getattr(cc, name)
+        assert getattr(cg, name).device.type == "cuda"
+        assert _err(getattr(cg, name).cpu(), want) <= 1e-9 * float(want.abs().max()), name

@@ -155,3 +155,54 @@ def test_check_cell_and_needs_rebuild():
     moved = p.clone()
     moved[7, 0] += 0.3
     assert bool(needs_rebuild(nl, moved, c, skin=0.5))
+
+
+def _bruteforce_counts(pos, cell, cutoff):
+    inv = np.linalg.inv(cell)
+    f = pos @ inv
+    df = f[None] - f[:, None]
+    df -= np.round(df)
+    d = df @ cell
+    d2 = np.einsum("ija,ija->ij", d, d)
+    np.fill_diagonal(d2, np.inf)
+    return (d2 <= cutoff * cutoff).sum(1)
+
+
+def test_perpendicular_widths_are_plane_spacings():
+    """Each width is the spacing of the lattice planes it bins across, V / |b x c|
+    and its cyclic partners; and check_cell holds a sheared cell to them."""
+    from mtp_tpu.ops.neighbors import check_cell as check_cell_jax
+    from mtp_tpu_torch.ops.neighbors import perpendicular_widths
+
+    cell = np.array([[18.0, 0, 0], [1.5, 18.0, 0], [0.5, -1.0, 18.0]])
+    v = abs(np.linalg.det(cell))
+    a, b, c = cell
+    want = [v / np.linalg.norm(np.cross(b, c)), v / np.linalg.norm(np.cross(c, a)),
+            v / np.linalg.norm(np.cross(a, b))]
+    np.testing.assert_allclose(perpendicular_widths(cell), want, rtol=1e-14)
+    # the narrowest spacing is 17.9285 A: a cutoff of 8.965 needs 17.93
+    check_cell_jax(cell, 8.965)  # the JAX package's row norms give 17.9378
+    with pytest.raises(ValueError, match="2\\*cutoff"):
+        check_cell(cell, 8.965)
+
+
+def test_sheared_cell_list_is_complete():
+    """A 20 A fcc box sheared by 12 A: binning by the plane spacings keeps
+    every pair within the cutoff. The JAX package bins by the inverse's row
+    norms, gives this cell 4 bins along a (3 fit), and drops pairs without a
+    flag."""
+    pos0, _, cube = make_lattice("fcc", 4.0, (5, 5, 5))
+    cell = cube.copy()
+    cell[1, 0] = 12.0
+    pos = pos0 @ np.linalg.inv(cube) @ cell + np.random.default_rng(0).normal(0, 0.1, pos0.shape)
+    want = _bruteforce_counts(pos, cell, 5.0)
+    assert grid_shape(cell, 5.0) == (3, 4, 4) and grid_jax(cell, 5.0) == (4, 3, 4)
+    nl = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.0,
+                             max_neighbors=64, grid=grid_shape(cell, 5.0))
+    assert not bool(nl.overflow)
+    idx = nl.idx.numpy()
+    np.testing.assert_array_equal((idx != np.arange(len(pos))[:, None]).sum(1), want)
+    ref = bnl_jax(jnp.asarray(pos), jnp.asarray(cell), 5.0, max_neighbors=64,
+                  grid=grid_jax(cell, 5.0))
+    got_jax = (np.asarray(ref.idx) != np.arange(len(pos))[:, None]).sum(1)
+    assert not bool(ref.overflow) and got_jax.sum() < want.sum()
