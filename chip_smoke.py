@@ -88,11 +88,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the fp32 kernel path against the float64 plain path on the card, held to
    the gates of phase 3, and the plain fp32 path beside it (the rounding
    floor), both against one oracle, with its time and peak device memory.
+11. The sharded path (``mtp_tpu_torch.parallel``), before phase 5's
+   profiler part. (a) A world of one NCCL rank at the main path's width,
+   from phase 4's state: ``ShardedSimulation.run_async`` and the
+   single-device ``Simulation.run_async``, 60 NVE steps each, in turns over
+   three rounds (atom-steps/s of both); positions and forces of the two
+   compared; the kernel path's energy, forces and virial at the final
+   positions held to phase 3's gates against the float64 plain path; K1-K4
+   launched and no plain twin called; a 10-step block under
+   ``torch.cuda.set_sync_debug_mode("error")``; the device's idle share of
+   one traced block. (b) The same box as 2 slabs on 2 rank processes
+   sharing the card (``--sharded-rank``, gloo with the messages staged
+   through host memory, ``Comm(transport="gloo-staged")``, a time limit of
+   its own): NVE for 2 blocks of 30 steps, atoms migrating, then one
+   ``grade_eval`` with phase 7's MVS (K5), its forces, energy and virial
+   held to phase 3's gates and its grades to phase 6's against the float64
+   plain path, and against the single-device port at the same positions;
+   the halo size, the migration counts and ms per step. Each rank then
+   holds K1-K5 against their plain twins on its own block rows (N = C + 2H,
+   padding rows in the trash bin, ghost rows masked as centers), at the
+   kernel rows' limits.
 
-Prints one JSON line of the ensembles' numbers, one of training and the
-gate, then one of all seven kernels, before the last line, and as the last
-line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
-when no CUDA device is present or the package is missing.
+Prints one JSON line of the ensembles' numbers, one of the sharded path,
+one of training and the gate, then one of all seven kernels (with their
+launch counts in phase 11 and their errors on (b)'s rank rows), before the
+last line, and as the last line
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
+CUDA device is present or the package is missing.
 """
 
 from __future__ import annotations
@@ -265,23 +287,16 @@ def kernel_inputs(model, state_pos, cell, types, swl):
     return pos_s, k, args
 
 
-def compare_kernels(model, pos, cell, types, swl, timing):
-    """Each kernel vs its plain version on the same inputs. Returns
-    ({name: (max_abs_err, ms, plain_ms)}, live pairs, {entry point: call});
-    the kernels are timed, and the calls for `stage_ms` returned, only with
-    `timing`."""
-    import torch
-
-    from mtp_tpu_torch.models.mtp import _window_geometry
-    from mtp_tpu_torch.ops import fused_basic as fb
+def window_kernel_calls(model, pos_s, cell, k, args):
+    """{name: (kernel call, plain call)} of K1-K4 on one set of sorted rows
+    `pos_s` with its window constants `k` and the kernels' inputs `args`."""
     from mtp_tpu_torch.ops import fused_moments as fm
     from mtp_tpu_torch.ops import window_disp as wd
     from mtp_tpu_torch.ops import window_giveback as wg
 
-    pos_s, k, args = kernel_inputs(model, pos, cell, types, swl)
     pair_T = fm.pair_forces_mega(*args)
     geo = (pos_s, k["idx_t"], cell, k["pair_valid_t"], model.cutoff)
-    calls = {
+    return {
         "window_disp": (
             lambda: wd.window_geometry(*geo),
             lambda: wd.window_geometry_plain(*geo),
@@ -299,18 +314,68 @@ def compare_kernels(model, pos, cell, types, swl, timing):
             lambda: fm.site_energies_mega_plain(*args, k["esp"]),
         ),
     }
+
+
+def hold(name, kern, plain, tag="  "):
+    """Kernel `name` against its plain version on the same inputs, held to
+    TOL[name]; returns (max_abs_err, the kernel's output)."""
+    got, want = kern(), plain()
+    torch_sync()
+    # K1 returns (dispT, maskf): every output is held to the tolerance
+    gots, wants = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    check(all(bool(g.isfinite().all()) for g in gots), f"{name}: non-finite kernel output")
+    errs = [max_err(g, w) for g, w in zip(gots, wants)]
+    err = max(errs)
+    print(f"{tag}{name}: max|kernel - plain| = {' and '.join(f'{e:.3e}' for e in errs)} "
+          f"(tol {TOL[name]:.0e})")
+    check(err <= TOL[name], f"{name} disagrees with its plain version")
+    return err, got
+
+
+def hold_k5(model, k, args, tag="  "):
+    """K5 against its plain twin on every output, each held to TOL_K5, and
+    the candidate vectors placed from both to GATE_B_REL; returns the
+    largest absolute error over the outputs."""
+    from mtp_tpu_torch.al.grades import _place_blocks
+    from mtp_tpu_torch.ops import fused_candidates as fc
+
+    got = fc.candidates_mega(*args, k["esp"])
+    want = fc.candidates_mega_plain(*args, k["esp"])
+    torch_sync()
+    errs = {}
+    for key, tol in TOL_K5.items():
+        check(bool(got[key].isfinite().all()), f"candidates_mega {key}: non-finite")
+        e = rel_err(got[key], want[key]) if key in K5_RELATIVE else max_err(got[key], want[key])
+        errs[key] = max_err(got[key], want[key])
+        kind = "relative" if key in K5_RELATIVE else "abs"
+        print(f"{tag}candidates_mega {key}: {kind} err {e:.3e} (tol {tol:.0e})")
+        check(e <= tol, f"candidates_mega {key} disagrees with its plain version")
+    s = model.schedule.species_count
+    b_k = _place_blocks(got["rad"], k["it_row"], got["basis_members"], s)
+    b_p = _place_blocks(want["rad"], k["it_row"], want["basis_members"], s)
+    eb = rel_err(b_k, b_p)
+    print(f"{tag}candidates_mega b: max|db|/max|b| = {eb:.3e} (gate {GATE_B_REL:.0e})")
+    check(eb <= GATE_B_REL, "candidate vectors from K5 disagree with the plain twin's")
+    return max(errs.values())
+
+
+def compare_kernels(model, pos, cell, types, swl, timing):
+    """Each kernel vs its plain version on the same inputs. Returns
+    ({name: (max_abs_err, ms, plain_ms)}, live pairs, {entry point: call});
+    the kernels are timed, and the calls for `stage_ms` returned, only with
+    `timing`."""
+    import torch
+
+    from mtp_tpu_torch.models.mtp import _window_geometry
+    from mtp_tpu_torch.ops import fused_basic as fb
+    from mtp_tpu_torch.ops import fused_moments as fm
+    from mtp_tpu_torch.ops import window_giveback as wg
+
+    pos_s, k, args = kernel_inputs(model, pos, cell, types, swl)
+    pair_T = fm.pair_forces_mega(*args)
     out = {}
-    for name, (kern, plain) in calls.items():
-        got, want = kern(), plain()
-        torch_sync()
-        # K1 returns (dispT, maskf): every output is held to the tolerance
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        check(all(bool(g.isfinite().all()) for g in got), f"{name}: non-finite kernel output")
-        errs = [max_err(g, w) for g, w in zip(got, want)]
-        err = max(errs)
-        print(f"  {name}: max|kernel - plain| = {' and '.join(f'{e:.3e}' for e in errs)} "
-              f"(tol {TOL[name]:.0e})")
-        check(err <= TOL[name], f"{name} disagrees with its plain version")
+    for name, (kern, plain) in window_kernel_calls(model, pos_s, cell, k, args).items():
+        err, _ = hold(name, kern, plain)
         ms = plain_ms = None
         if timing:
             ms = time_ms(kern, 20)
@@ -395,29 +460,12 @@ def compare_al_kernels(model, pos, cell, types, swl, timing):
     four outputs, each of which is checked against its tolerance."""
     import torch
 
-    from mtp_tpu_torch.al.grades import _place_blocks
     from mtp_tpu_torch.ops import fused_basic as fb
     from mtp_tpu_torch.ops import fused_candidates as fc
     from mtp_tpu_torch.ops import fused_moments as fm
 
     _, k, args = kernel_inputs(model, pos, cell, types, swl)
-    got = fc.candidates_mega(*args, k["esp"])
-    want = fc.candidates_mega_plain(*args, k["esp"])
-    torch_sync()
-    errs = {}
-    for key, tol in TOL_K5.items():
-        check(bool(got[key].isfinite().all()), f"candidates_mega {key}: non-finite")
-        e = rel_err(got[key], want[key]) if key in K5_RELATIVE else max_err(got[key], want[key])
-        errs[key] = max_err(got[key], want[key])
-        kind = "relative" if key in K5_RELATIVE else "abs"
-        print(f"  candidates_mega {key}: {kind} err {e:.3e} (tol {tol:.0e})")
-        check(e <= tol, f"candidates_mega {key} disagrees with its plain version")
-    s = model.schedule.species_count
-    b_k = _place_blocks(got["rad"], k["it_row"], got["basis_members"], s)
-    b_p = _place_blocks(want["rad"], k["it_row"], want["basis_members"], s)
-    eb = rel_err(b_k, b_p)
-    print(f"  candidates_mega b: max|db|/max|b| = {eb:.3e} (gate {GATE_B_REL:.0e})")
-    check(eb <= GATE_B_REL, "candidate vectors from K5 disagree with the plain twin's")
+    e5 = hold_k5(model, k, args)
     mb = fb.basic_moments_fused(*args[:6])
     mb_plain = fb.basic_moments_fused_plain(*args[:6])
     e6 = rel_err(mb, mb_plain)
@@ -434,7 +482,7 @@ def compare_al_kernels(model, pos, cell, types, swl, timing):
           f"(tol {TOL_K7:.0e})")
     check(e7 <= TOL_K7, "basic_moments_vjp disagrees with its plain version")
     out = {
-        "candidates_mega": [max(errs.values()), None, None],
+        "candidates_mega": [e5, None, None],
         "basic_moments_fused": [max_err(mb, mb_plain), None, None],
         "basic_moments_vjp": [e7, None, None],
     }
@@ -1132,6 +1180,384 @@ def gate_phase(dev, card):
     return out
 
 
+SHARDED_STEPS, SHARDED_ROUNDS = 60, 3  # phase 11a: steps per timed run, rounds in turns
+SHARDED_B = dict(world=2, blocks=2, spb=30, timeout_s=300.0)  # phase 11b
+
+
+def _f64_reference(m, pos, types, cell, dev, inverse_active_set=None):
+    """The float64 plain path at `pos` on the card: energy, forces, virial,
+    and with an MVS the neighborhood grades (the oracle of phases 3 and 6)."""
+    import dataclasses
+
+    import torch
+
+    from mtp_tpu_torch.al.grades import candidate_vectors, nbh_grades
+    from mtp_tpu_torch.models.mtp import MTPModel, mtp_energy_forces
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+
+    model64 = MTPModel.from_data(m, device=dev, dtype=torch.float64)
+    p = torch.as_tensor(pos, dtype=torch.float64, device=dev)
+    c = torch.as_tensor(cell, dtype=torch.float64, device=dev)
+    t = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    cut = model64.cutoff + 0.6
+    nl = build_neighbor_list(p, c, cut, max_neighbors=64, grid=grid_shape(cell, cut))
+    check(not bool(nl.overflow), "f64 list overflow")
+    out = mtp_energy_forces(model64, p, t, nl.idx, c, nl.mirror)
+    if inverse_active_set is not None:
+        model64 = dataclasses.replace(model64, inverse_active_set=torch.as_tensor(
+            inverse_active_set, dtype=torch.float64, device=dev))
+        b, _ = candidate_vectors(model64, p, t, nl.idx, c)
+        out["grades"] = nbh_grades(b, model64.inverse_active_set)
+    return out
+
+
+def _gates(tag, n, e32, f32, w32, ref):
+    """Phase 3's gates for fp32 energy, forces and virial against `ref`."""
+    de = abs(float(e32) - float(ref["energy"])) / n
+    df = max_err(f32, ref["forces"])
+    dw = max_err(w32, ref["virial"])
+    print(f"[11 sharded] {tag}: dE/atom={de:.3e} (gate {GATE_DE:.0e}) max|dF|={df:.3e} "
+          f"(gate {GATE_DF:.0e}) max|dW|={dw:.3e} (gate {GATE_DW:.0e})")
+    check(de < GATE_DE and df < GATE_DF and dw < GATE_DW, f"{tag}: gate")
+    return dict(de_per_atom=de, max_df=df, max_dw=dw)
+
+
+def sharded_world_of_one(dev, card, m, model, state):
+    """Phase 11a: ShardedSimulation.run_async on a world of one NCCL rank at
+    the main path's width, beside Simulation.run_async from the same state,
+    in turns. Returns (report, launch counts of K1-K4)."""
+    import torch
+    import torch.distributed as dist
+
+    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.md.simulation import Simulation
+    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.parallel.comm import Comm, init_world
+    from mtp_tpu_torch.parallel.domain import partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import ShardedState
+    from mtp_tpu_torch.parallel.sharded_window import ShardedSimulation
+    from mtp_tpu_torch.utils.prof import device_window, kernel_count, trace
+
+    n = state.n_atoms
+    np_state = [getattr(state, k).cpu().numpy() for k in ("positions", "velocities", "types",
+                                                           "masses", "cell")]
+    cell = np_state[4]
+    w_cut = model.cutoff + 0.6
+    kernels = main_path_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(dev)
+        init_world(0, 1, f"{tmp}/store", backend="nccl")
+        try:
+            comm = Comm()
+            check(comm.transport == "nccl" and comm.world == 1, "not a world of one NCCL rank")
+            # one rank holds every atom: capacity n, no padding rows
+            part = partition_slabs(*np_state[:4], cell, 1, cutoff=w_cut, capacity=n)
+            ss0 = ShardedState.from_partition(part, cell, 0, dtype=torch.float32, device=dev)
+            kw = dict(max_neighbors=64, skin=0.6, steps_per_rebuild=30)
+            shd = ShardedSimulation(model, comm, capacity=n, grid=grid_shape(cell, w_cut), **kw)
+            one = Simulation(model, compute_virial=False, **kw)
+            shd.run_async(ss0, 30)  # warm-up, each as it is timed
+            one.run_async(state, 30)
+            rates = {"single": [], "sharded": []}
+            for rnd in range(SHARDED_ROUNDS):
+                for name in (("single", "sharded") if rnd % 2 == 0 else ("sharded", "single")):
+                    torch_sync()
+                    if rnd == 0 and name == "sharded":
+                        reset_counts()
+                    t0 = time.perf_counter()
+                    if name == "single":
+                        out1, _, fl1 = one.run_async(state, SHARDED_STEPS)
+                    else:
+                        outs, fls = shd.run_async(ss0, SHARDED_STEPS)
+                    torch_sync()
+                    rates[name].append(n * SHARDED_STEPS / (time.perf_counter() - t0))
+                    if rnd == 0 and name == "sharded":
+                        launches = {k.name: k.launches for k in kernels}
+                        plain = {k.name: k.plain_calls for k in kernels}
+            check(not bool(fl1) and not bool(fls.any()), "phase 11a flags set")
+            print(f"[11a world of 1] NCCL, {n} atoms, level 16, fp32, J=64, {SHARDED_STEPS} NVE "
+                  f"steps at spb 30: launches {launches}; plain calls {plain}")
+            for k in kernels:
+                check(launches[k.name] > 0, f"{k.name} was not launched on the sharded path")
+                check(plain[k.name] == 0, f"{k.name}'s plain version ran on the sharded path")
+            pos_s, frc_s = outs.gather_all([outs.positions, outs.forces], comm)
+            dx = float(np.abs(pos_s - out1.positions.cpu().numpy()).max())
+            dfs = float(np.abs(frc_s - out1.forces.cpu().numpy()).max())
+            print(f"[11a world of 1] sharded vs single-device after {SHARDED_STEPS} steps: "
+                  f"max|dx|={dx:.3e} A max|dF|={dfs:.3e} eV/A")
+            check(dx < 1e-4 and dfs < GATE_DF, "sharded world of one left the single-device run")
+            # the kernel path's energy, forces and virial at the final
+            # positions (one refresh with the virial on) against float64
+            shv = ShardedSimulation(model, comm, capacity=n, grid=shd.grid, compute_virial=True,
+                                    **kw)
+            st, ctx, _ = shv.rebuild(outs)
+            st, _ = shv.steps(st, ctx, 0, refresh=True)
+            gate = _gates("11a world of 1 vs f64 plain", n, st.potential_energy,
+                          torch.as_tensor(st.gather(st.forces, comm), device=dev), st.virial,
+                          _f64_reference(m, pos_s, np_state[2], cell, dev))
+            # a block reads nothing back: steps under the sync debugger
+            st, ctx, _ = shd.rebuild(outs)
+            torch_sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, stale = shd.steps(st, ctx, 10)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(not bool(stale), "stale in the sync-debug block")
+            # one traced block: the device's idle share
+            with trace() as prof:
+                shd.run_async(outs, 30, refresh=False)
+                torch_sync()
+            path = Path(tmp) / "sharded_trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+            span_us, busy_us = device_window(events)
+        finally:
+            dist.destroy_process_group()
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    report = dict(
+        atoms=n, steps=SHARDED_STEPS, rounds=rates, median=med, sharded_vs_single=dict(
+            max_dx=dx, max_df=dfs), f64=gate, traced_block=dict(
+            span_ms=span_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1.0 - busy_us / span_us,
+            kernels_per_step=kernel_count(events) / 30), card=card,
+    )
+    print(f"[11a world of 1] atom-steps/s by round: single {[round(v) for v in rates['single']]}"
+          f", sharded {[round(v) for v in rates['sharded']]}; medians single "
+          f"{med['single']:.1f}, sharded {med['sharded']:.1f} on {card}")
+    print(f"[11a world of 1] traced block (rebuild + 30 steps): span {span_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share {1.0 - busy_us / span_us:.4f}, "
+          f"{kernel_count(events) / 30:.1f} kernels per step; no host read in a 10-step block")
+    return report, launches
+
+
+def sharded_kernel_errors(sim, st, ctx, tag):
+    """K1-K5 against their plain twins on one rank's block inputs, as
+    `sim.rebuild` left them in `ctx`: the halo-extended rows (N = C + 2H, no
+    box's atom count), the padding rows in the trash bin and the ghost rows
+    masked as centers. A collective (the positions' halo exchange): every
+    rank calls it. Held to the kernel rows' limits; also checks that ghost
+    and padding rows carry no live pair and no site energy, and that K3
+    still fills the ghost rows. Returns ({name: max_abs_err}, row counts)."""
+    from mtp_tpu_torch.ops.window_disp import window_geometry
+
+    swl, k = ctx["swl"], ctx["consts"]
+    model = sim.model
+    (ext,) = sim._exchange_multi([(st.positions, 0.0)], ctx["sels"])
+    pos_s = ext[swl.order].contiguous()
+    own_s, real_s = ctx["own"][swl.order], ctx["real"][swl.order]
+    ghost_s = real_s & ~own_s
+    rows = dict(N=int(pos_s.shape[0]), own=int(own_s.sum()), ghost=int(ghost_s.sum()),
+                padding=int((~real_s).sum()))
+    print(f"{tag}kernels vs plain on this rank's rows: {rows}")
+    check(rows["ghost"] > 0 and rows["padding"] > 0, "no ghost or no padding rows")
+    disp, mask = window_geometry(pos_s, k["idx_t"], st.cell, k["pair_valid_t"], model.cutoff)
+    args = (model.tables, disp, mask, k["it_row"], k["jtypes_t"], model.coeffs.radial_coeffs,
+            k["xi_full"])
+    errs, outs = {}, {}
+    for name, (kern, plain) in window_kernel_calls(model, pos_s, st.cell, k, args).items():
+        errs[name], outs[name] = hold(name, kern, plain, tag)
+    errs["candidates_mega"] = hold_k5(model, k, args, tag)
+    check(float(mask[:, ~own_s].abs().max()) == 0.0, "a ghost or padding row has a live pair")
+    check(float(outs["pair_forces_mega"][:, :, ~own_s].abs().max()) == 0.0,
+          "K2 gave a masked row pair forces")
+    check(float(outs["site_energies_mega"][~own_s].abs().max()) == 0.0,
+          "K4 gave a masked row a site energy")
+    f = outs["window_giveback"]
+    check(bool((f[ghost_s].abs().sum(-1) > 0).any()), "K3 left every ghost row empty")
+    check(float(f[~real_s].abs().max()) == 0.0, "K3 gave a padding row a force")
+    return errs, rows
+
+
+def sharded_rank_main(rank, world, workdir) -> int:
+    """Phase 11b's rank process (``chip_smoke.py --sharded-rank R W DIR``):
+    one of `world` gloo ranks on the one card, its messages staged through
+    host memory; writes its result into DIR."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.kernels import all_kernels, reset_counts
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.parallel.comm import Comm, init_world
+    from mtp_tpu_torch.parallel.domain import halo_capacities, partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import ShardedState
+    from mtp_tpu_torch.parallel.sharded_window import ShardedSimulation
+
+    rank, world, workdir = int(rank), int(world), Path(workdir)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_world(rank, world, str(workdir / "store"), backend="gloo",
+               timeout_s=SHARDED_B["timeout_s"])
+    try:
+        comm = Comm(transport="gloo-staged")
+        d = np.load(workdir / "inputs.npz")
+        model = MTPModel.from_data(make_mtp(16, species_count=1, seed=SEED), device=dev,
+                                   dtype=torch.float32)
+        model = dataclasses.replace(model, inverse_active_set=torch.as_tensor(
+            d["inv"], dtype=torch.float32, device=dev))
+        cell = d["cell"]
+        w_cut = model.cutoff + 0.6
+        part = partition_slabs(d["pos"], d["vel"], d["types"], d["masses"], cell, world,
+                               cutoff=w_cut)
+        hc = halo_capacities(part, cell, (world,), w_cut)
+        sim = ShardedSimulation(model, comm, capacity=part.capacity, max_neighbors=64,
+                                grid=grid_shape(cell, w_cut), skin=0.6,
+                                steps_per_rebuild=SHARDED_B["spb"], halo_capacity=hc)
+        ss = ShardedState.from_partition(part, cell, rank, dtype=torch.float32, device=dev)
+        sim.run_async(ss, 2)  # warm-up, discarded
+        ids0 = set(ss.ids[ss.real].tolist())
+        n_steps = SHARDED_B["blocks"] * SHARDED_B["spb"]
+        comm.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, flags = sim.run(ss, n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st, ctx, f4 = sim.rebuild(out)
+        g = sim.grade_eval(st, ctx)
+        torch.cuda.synchronize()
+        counts = {k.name: (k.launches, k.plain_calls) for k in all_kernels()}
+        # after the counts: launches to compare kernels count nowhere
+        errs, rows = sharded_kernel_errors(sim, st, ctx, "  ")
+        pos, frc, grades = st.gather_all([st.positions, g["forces"], g["grades"]], comm, root=0)
+        result = dict(
+            rank=rank, capacity=part.capacity, halo=list(hc), NE=sim.NE,
+            halo_after=sim.halo_capacity, max_neighbors=sim.max_neighbors,
+            arrived=len(set(out.ids[out.real].tolist()) - ids0),
+            own=int(out.real.sum()), ms_per_step=wall / n_steps * 1e3,
+            flags=bool(torch.stack([*f4]).any()), counts=counts, kernel_errs=errs,
+            kernel_rows=rows,
+        )
+        (workdir / f"rank{rank}.json").write_text(json.dumps(result))
+        if rank == 0:
+            np.savez(workdir / "result.npz", pos=pos, forces=frc, grades=grades,
+                     energy=float(g["energy"]), virial=g["virial"].cpu().numpy(),
+                     max_grade=float(g["max_grade"]))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_two_ranks(dev, card, m, al_model, state):
+    """Phase 11b: the 32k box as 2 slabs on 2 rank processes sharing the
+    card through the staged gloo transport: NVE for 2 blocks, then one
+    grade_eval with phase 7's MVS (K5), held against the float64 plain path
+    and the single-device port at the same positions. Returns (report,
+    launch counts summed over the ranks)."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import grade_eval_window
+    from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape
+
+    world = SHARDED_B["world"]
+    inv = al_model.inverse_active_set.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "inputs.npz", inv=inv, **{k: getattr(state, a).cpu().numpy() for k, a in (
+            ("pos", "positions"), ("vel", "velocities"), ("types", "types"),
+            ("masses", "masses"), ("cell", "cell"))})
+        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--sharded-rank", str(r), str(world),
+             tmp], cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        deadline = time.monotonic() + SHARDED_B["timeout_s"]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        for r in range(world):
+            for line in (Path(tmp) / f"rank{r}.log").read_text().splitlines()[-30:]:
+                print(f"[11b rank {r}] {line}")
+        check(all(p.returncode == 0 for p in procs),
+              f"phase 11b ranks failed or timed out: exit codes {[p.returncode for p in procs]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
+        res = dict(np.load(Path(tmp) / "result.npz"))
+    n = state.n_atoms
+    for r in ranks:
+        check(not r["flags"], f"rank {r['rank']}: flags set")
+        check(r["halo_after"] == r["halo"] and r["max_neighbors"] == 64,
+              f"rank {r['rank']}: run recovered from a tripped block")
+    counts = {name: sum(r["counts"][name][0] for r in ranks) for name in ranks[0]["counts"]}
+    plain = {name: sum(r["counts"][name][1] for r in ranks) for name in ranks[0]["counts"]}
+    print(f"[11b 2 ranks] {n} atoms as 2 slabs on one card (gloo, staged through the host): "
+          f"C={ranks[0]['capacity']} H={ranks[0]['halo']} rows per rank {ranks[0]['NE']}; "
+          f"atoms arrived by migration {[r['arrived'] for r in ranks]}, own after "
+          f"{[r['own'] for r in ranks]}; launches {counts}; plain calls {plain}")
+    for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
+                 "candidates_mega"):
+        check(counts[name] > 0, f"{name} was not launched on 2 ranks")
+        check(plain[name] == 0, f"{name}'s plain version ran on 2 ranks")
+    errs = {name: max(r["kernel_errs"][name] for r in ranks) for name in ranks[0]["kernel_errs"]}
+    print(f"[11b 2 ranks] kernels vs plain twins on each rank's block rows "
+          f"{[r['kernel_rows'] for r in ranks]}: max|kernel - plain| over the ranks {errs}")
+    # each rank held every output to its limit (K5's to TOL_K5, some relative)
+    for name, tol in TOL.items():
+        check(errs[name] <= tol, f"{name} disagrees with its plain version on a rank's rows")
+    check(sum(r["arrived"] for r in ranks) > 0, "no atom migrated in phase 11b")
+    check(sum(r["own"] for r in ranks) == n, "atoms lost in migration")
+    ms = [r["ms_per_step"] for r in ranks]
+    print(f"[11b 2 ranks] {SHARDED_B['blocks']} blocks of {SHARDED_B['spb']} NVE steps: "
+          f"{ms} ms per step by rank (host staging, rebuilds included) on {card}")
+    # the grade pass at the final positions: float64 plain path, and the
+    # single-device port (K1, K5, K3) at the same positions
+    pos = res["pos"]
+    types = state.types.cpu().numpy()
+    cell = state.cell.cpu().numpy()
+    f64 = _f64_reference(m, pos, types, cell, dev, inverse_active_set=inv)
+    forces = torch.as_tensor(res["forces"], device=dev)
+    gate = _gates("11b 2 ranks vs f64 plain", n, res["energy"], forces,
+                  torch.as_tensor(res["virial"], device=dev), f64)
+    g64 = f64["grades"].cpu().numpy()
+    dg = float(np.abs(res["grades"] - g64).max()) / float(g64.max())
+    dgm = abs(float(res["max_grade"]) - float(g64.max())) / float(g64.max())
+    print(f"[11b 2 ranks] grades vs f64: max|dg|/max g={dg:.3e} (gate {GATE_GRADE_REL:.0e}), "
+          f"max grade {float(res['max_grade']):.6f} rel err {dgm:.3e} "
+          f"(gate {GATE_MAX_GRADE_REL:.0e})")
+    check(dg < GATE_GRADE_REL and dgm < GATE_MAX_GRADE_REL, "phase 11b grades vs f64")
+    p32 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    c32 = state.cell
+    cut = al_model.cutoff + 0.6
+    swl = build_sorted_neighbor_list(p32, c32, cut, max_neighbors=64, grid=grid_shape(cell, cut))
+    one = grade_eval_window(al_model, p32, state.types, c32, swl, al_model.inverse_active_set,
+                            config_mode=False)
+    single = _gates("11b 2 ranks vs single-device port", n, res["energy"], forces,
+                    torch.as_tensor(res["virial"], device=dev), one)
+    dgs = abs(float(res["max_grade"]) - float(one["max_grade"])) / float(one["max_grade"])
+    print(f"[11b 2 ranks] max grade vs single-device port: rel err {dgs:.3e} "
+          f"(gate {GATE_MAX_GRADE_REL:.0e})")
+    check(dgs < GATE_MAX_GRADE_REL, "phase 11b max grade vs the single-device port")
+    report = dict(atoms=n, ranks=world, capacity=ranks[0]["capacity"], halo=ranks[0]["halo"],
+                  rows_per_rank=ranks[0]["NE"], arrived=[r["arrived"] for r in ranks],
+                  ms_per_step=ms, f64=gate, single_device=single, grade_rel=dg,
+                  max_grade_rel=dgm, max_grade_vs_single_rel=dgs,
+                  kernel_rows=[r["kernel_rows"] for r in ranks], card=card)
+    return report, counts, errs
+
+
+def sharded_phase(dev, card, m, model, state, al_model):
+    """Phase 11: the sharded path, (a) and (b). Returns (report, {kernel
+    name: {"a": launches, "b": launches}}, {kernel name: max_abs_err on
+    (b)'s rank rows})."""
+    a, la = sharded_world_of_one(dev, card, m, model, state)
+    b, lb, errs = sharded_two_ranks(dev, card, m, al_model, state)
+    names = set(la) | set(lb)
+    return dict(world_of_one=a, two_ranks=b), {
+        k: {"a": la.get(k, 0), "b": lb.get(k, 0)} for k in names}, errs
+
+
 def main() -> int:
     import torch
 
@@ -1285,6 +1711,11 @@ def main() -> int:
         train_report = training_phase(dev, card, Path(tmp))
     gate_report = gate_phase(dev, card)
 
+    # ---- 11. the sharded path: a world of one NCCL rank at full width, and
+    # two gloo ranks on the one card; before phase 5's profiler part
+    sharded_report, sharded_counts, sharded_errs = sharded_phase(dev, card, m, model, state,
+                                                                 al_model)
+
     # ---- 5, continued: device time by stage kernel. Taken after phase 7:
     # a torch.profiler session slows the host-bound runs that follow it in
     # the process and widens their spread (`python -m mtp_tpu_torch.utils.prof
@@ -1306,8 +1737,13 @@ def main() -> int:
               f"{launches[k.name] / steps:.4f} launches per main-path step")
         rows.append(row)
     rows += rows7
+    for row in rows:
+        row["sharded_launches"] = sharded_counts.get(row["name"], {"a": 0, "b": 0})
+        # (b)'s kernel-vs-plain check on the rank rows; None off the path
+        row["sharded_max_abs_err"] = sharded_errs.get(row["name"])
     print(card)
     print(json.dumps({"ensembles": ens_report}))
+    print(json.dumps({"sharded": sharded_report}))
     print(json.dumps({"oracle": oracle_report, "training": train_report,
                       "accuracy_gate": gate_report}))
     print(json.dumps({"kernels": rows}))
@@ -1320,4 +1756,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(*sys.argv[2:5]))
     sys.exit(main())

@@ -1,11 +1,12 @@
 """Active-learning driver: extrapolation-grade evaluation during MD, with the
 reference's two observation styles and two-threshold selection semantics.
 
-Port of ``mtp_tpu/al/driver.py`` (single device; the sharded monitor waits
-for the multi-device slice). The MD segments run under any ensemble of
-:meth:`Simulation.run_async`, with the integrator state carried across
-segments; every grade step tallies the virial, so a barostat continues from
-a consistent state after each refresh.
+Port of ``mtp_tpu/al/driver.py``: the single-device monitor and driver,
+and the sharded ones on the window engine (:class:`ShardedExtrapolationMonitor`,
+:func:`run_sharded_with_extrapolation`). The MD segments run under any
+ensemble of :meth:`Simulation.run_async` (and every sharded ensemble), with
+the integrator state carried across segments; every grade step tallies the
+virial, so a barostat continues from a consistent state after each refresh.
 
 * LAMMPS style (reference README.md:60-82): grades computed every N steps on
   request; per-atom grades and the scalar max grade are exposed as observables
@@ -291,6 +292,171 @@ def run_with_extrapolation(
         done += k
         _, state = monitor._commit(pending, new_state, refresh_forces=True)
         aux = new_aux
+        if observer is not None:
+            observer(state, monitor)
+    return state
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedExtrapolationMonitor:
+    """Multi-device extrapolation monitor on the window engine: grades
+    through :meth:`ShardedSimulation.grade_eval
+    <mtp_tpu_torch.parallel.sharded_window.ShardedSimulation.grade_eval>`
+    (the fused candidates kernel rank-local inside the simulation's
+    neighbor context), the max over ranks, and an id-ordered gather to rank
+    0 for the preselected ``.cfg`` stream, with the single-device monitor's
+    thresholds and flush-before-break contract (the reference's MPI grade
+    pipeline, pair_mtp_extrapolation.cpp:363-479).
+
+    Every rank of `comm` holds one and makes the same calls: the max grade
+    is the same on every rank, so every rank takes the same select and
+    break decisions, and the gathers they need are collectives. Only rank 0
+    opens and writes `output_path`. Reading :attr:`nbh_grades` is a
+    collective too. The JAX monitor's standalone engine (its own halo and
+    list per call) is not ported.
+    """
+
+    model: MTPModel
+    comm: object
+    select_threshold: Optional[float] = None
+    break_threshold: Optional[float] = None
+    output_path: Optional[str] = None
+
+    _max_grade: object = 0.0  # float, or a 0-d device tensor until read
+    _nbh_pending: object = None  # (grades, state) until read, numpy array, or None
+    _writer: Optional[CfgWriter] = None
+
+    def __post_init__(self):
+        if self.model.inverse_active_set is None:
+            raise ValueError("model has no MVS selection state")
+        if self.output_path is not None and self.comm.rank == 0:
+            self._writer = CfgWriter(self.output_path)
+
+    @property
+    def mlip3_style(self) -> bool:
+        return self.select_threshold is not None
+
+    @property
+    def max_grade(self) -> float:
+        if not isinstance(self._max_grade, float):
+            self._max_grade = float(self._max_grade)
+        return self._max_grade
+
+    @property
+    def nbh_grades(self) -> Optional[np.ndarray]:
+        """Per-atom grades of the last evaluation in original atom order (a
+        collective on first read), or None in configuration mode."""
+        if isinstance(self._nbh_pending, tuple):
+            grades, snap = self._nbh_pending
+            self._nbh_pending = snap.gather(grades, self.comm)
+        return self._nbh_pending
+
+    def evaluate(self, sstate, *, sim, ctx, refresh_forces: bool = False):
+        """Grades of a ShardedState through `sim`'s window engine, with the
+        block context `ctx` of its last rebuild; thresholds as in the
+        single-device monitor. ``refresh_forces=True`` returns ``(grade,
+        state)`` with forces, energy and virial from the same pass."""
+        return self._commit(self._compute(sstate, sim=sim, ctx=ctx), sstate,
+                            refresh_forces=refresh_forces)
+
+    def _compute(self, sstate, *, sim, ctx) -> dict:
+        """The device half: queues the grade pass, touches no monitor state."""
+        return sim.grade_eval(sstate, ctx)
+
+    def _commit(self, out: dict, sstate, *, refresh_forces: bool = False):
+        """The host half: store the observables, apply the MLIP-3
+        thresholds, optionally return the refreshed state. The pending
+        grades pin THIS state, whose ids pair with them."""
+        self._max_grade = out["max_grade"]
+        self._nbh_pending = None if self.model.configuration_mode else (out["grades"], sstate)
+        g = out["max_grade"]
+        if self.mlip3_style:
+            g = self.max_grade
+            self._apply_thresholds(sstate)
+        if refresh_forces:
+            return g, dataclasses.replace(sstate, forces=out["forces"],
+                                          potential_energy=out["energy"], virial=out["virial"])
+        return g
+
+    def _apply_thresholds(self, sstate):
+        if self.output_path is not None and self.max_grade >= self.select_threshold:
+            grades = self.nbh_grades
+            pos, typ = sstate.gather_all([sstate.positions, sstate.types], self.comm, root=0)
+            if self._writer is not None:
+                self._writer.write(sstate.cell.detach().cpu().numpy(), pos, typ,
+                                   grades=grades, max_grade=self.max_grade)
+        if self.break_threshold is not None and self.max_grade >= self.break_threshold:
+            # flush-before-break: no selected configuration may be lost
+            self.close()
+            raise BreakThresholdExceeded(self.max_grade)
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
+def run_sharded_with_extrapolation(
+    sim,
+    monitor: ShardedExtrapolationMonitor,
+    sstate,
+    n_steps: int,
+    *,
+    al_every: int = 1,
+    observer=None,
+    **run_kwargs,
+):
+    """Multi-device MD with periodic grade evaluation on the window engine:
+    the sharded :func:`run_with_extrapolation`. Every rank calls it.
+
+    * the grade evaluation REUSES the segment's last block context
+      (``ShardedSimulation.grade_eval``: lists, halo selections and window
+      constants; no second rebuild),
+    * it SHARES its fused pass with the force refresh, so the next segment
+      starts from the forces, energy and virial it computed
+      (``refresh=False``), and
+    * it is queued BEFORE the segment's flags are read; a tripped segment
+      discards it, applies ``ShardedSimulation._recover`` and retries.
+
+    `run_kwargs` go to :meth:`ShardedSimulation.steps` (``ensemble``, ``dt``,
+    ``temperature``, ``pressure``, ``tdamp``, ``pdamp``); the thermostat and
+    barostat state rides in ``sstate.thermo``. `sim.model` must carry the
+    MVS selection state. Returns the final ShardedState; raises
+    :class:`BreakThresholdExceeded` in MLIP-3 style when the break
+    threshold is hit (stream flushed first).
+    """
+    state, ctx, f4 = sim.rebuild(sstate)
+    if any(torch.stack(list(f4)).tolist()):
+        sim._recover([*f4, False])
+        state, ctx, f4 = sim.rebuild(sstate)
+        if any(torch.stack(list(f4)).tolist()):
+            raise RuntimeError("initial sharded rebuild keeps tripping flags")
+    _, state = monitor._commit(monitor._compute(state, sim=sim, ctx=ctx), state,
+                               refresh_forces=True)
+    done = 0
+    while done < n_steps:
+        k = min(al_every, n_steps - done)
+        while True:
+            prev = cur = state
+            inner = 0
+            flags = None
+            while inner < k:
+                b = min(sim.steps_per_rebuild, k - inner)
+                cur, ctx, f4 = sim.rebuild(cur)
+                cur, stale = sim.steps(cur, ctx, b, refresh=False, **run_kwargs)
+                seg = torch.stack([*f4, stale])
+                flags = seg if flags is None else flags | seg
+                inner += b
+            # speculative grade dispatch BEFORE the flag read; _compute is
+            # pure, so a tripped segment just discards it
+            pending = monitor._compute(cur, sim=sim, ctx=ctx)
+            flags = flags.tolist()
+            if any(flags):
+                sim._recover(flags, cell=prev.cell.detach().cpu().numpy())
+                state = prev
+                continue
+            break
+        done += k
+        _, state = monitor._commit(pending, cur, refresh_forces=True)
         if observer is not None:
             observer(state, monitor)
     return state

@@ -83,9 +83,13 @@ def temperature_of(state: MDState):
 
 
 def volume_of(state: MDState):
-    """Cell volume |det(cell)| [A^3], as the closed-form triple product
+    """Cell volume |det(cell)| [A^3] (:func:`cell_volume`)."""
+    return cell_volume(state.cell)
+
+
+def cell_volume(c):
+    """|det(c)| [A^3] of a (3, 3) cell, as the closed-form triple product
     ``a . (b x c)`` of the cell rows: elementwise operations, no LAPACK call."""
-    c = state.cell
     cross = torch.stack([
         c[1, 1] * c[2, 2] - c[1, 2] * c[2, 1],
         c[1, 2] * c[2, 0] - c[1, 0] * c[2, 2],

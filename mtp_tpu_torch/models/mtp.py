@@ -312,22 +312,35 @@ def mtp_energy_window(
     return torch.sum(site_e)
 
 
-def window_constants(model: MTPModel, types, swl):
+def window_constants(model: MTPModel, types, swl, center_mask=None):
     """Rebuild-constant arrays of the window path: center types (N,),
     neighbor types (J, N), the transposed list (J, N) int32 (K1 reads it
     coalesced), the non-self-pair mask (J, N), the mirror offsets (J, N)
     int32 of K3, per-atom species energies (N,) and the readout vector (M,).
-    `types` is in user order."""
+    `types` is in user order.
+
+    `center_mask`: optional (N,) bool in user order; False rows are no
+    CENTERS: their pairs are masked and their species energy zeroed, so
+    their site energies and pair forces vanish. The sharded path masks the
+    ghosts of its halo-extended set this way (a ghost's neighborhood is
+    incomplete; its owner computes it). K3 still fills a masked row with
+    the mirrored pair forces of the centers around it."""
     types_s = types[swl.order].to(torch.int32)
     n, j = swl.idx.shape
     rows = torch.arange(n, device=swl.idx.device)
+    pair_valid = swl.idx != rows[:, None]
+    esp = model.coeffs.species_coeffs[types_s.long()]
+    if center_mask is not None:
+        center_ok = center_mask[swl.order]
+        pair_valid = pair_valid & center_ok[:, None]
+        esp = torch.where(center_ok, esp, 0.0)
     return dict(
         it_row=types_s.contiguous(),
         jtypes_t=types_s[swl.idx.long()].T.contiguous(),
         idx_t=swl.idx.T.contiguous(),
-        pair_valid_t=(swl.idx != rows[:, None]).T.contiguous(),
+        pair_valid_t=pair_valid.T.contiguous(),
         mirror_t=mirror_offsets(swl.mirror, n, j),
-        esp=model.coeffs.species_coeffs[types_s.long()].contiguous(),
+        esp=esp.contiguous(),
         xi_full=readout_vector(model),
     )
 

@@ -110,6 +110,7 @@ def build_neighbor_list(
     max_neighbors: int,
     grid: tuple,
     bin_capacity: int | None = None,
+    real=None,
 ):
     """Periodic cell-list neighbor build.
 
@@ -122,6 +123,9 @@ def build_neighbor_list(
         than 3 bins, every bin is a candidate once.
       bin_capacity: atoms per bin in the cell table (default: 2.2x the mean
         + 12, as in the JAX package); exceeding it raises the overflow flag.
+      real: optional (N,) bool; False rows (slab padding) go to a trash bin
+        the stencil never reads, so they are neither centers nor neighbors
+        (their rows hold only self-padding) and cannot overflow a real bin.
 
     Returns :class:`NeighborList` with the flat mirror permutation; each row
     is sorted ascending, pads (the row's own index) included.
@@ -132,6 +136,8 @@ def build_neighbor_list(
     ncells = gx * gy * gz
     inv_cell = inverse_cell(cell)
     bin3, bin_id = _bins(positions, inv_cell, grid)
+    if real is not None:
+        bin_id = torch.where(real, bin_id, ncells)  # the trash bin
 
     # the grid is static but the cell is a run-time value: flag any binned
     # dimension whose bin width has shrunk below the cutoff (relative
@@ -145,14 +151,16 @@ def build_neighbor_list(
     order = torch.argsort(bin_id, stable=True)
     sorted_bin = bin_id[order]
     cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
-    counts = torch.zeros(ncells, dtype=torch.int64, device=dev).index_add_(
+    nbins = ncells + (real is not None)
+    counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
         0, bin_id, torch.ones_like(bin_id)
     )
-    cell_overflow = torch.max(counts) > cap
+    cell_overflow = torch.max(counts[:ncells]) > cap
     start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, device=dev) - start[sorted_bin]
-    table = torch.full((ncells, cap), -1, dtype=torch.int64, device=dev)
-    # on bin overflow, clipped writes collide (the flag is already set)
+    table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
+    # on bin overflow, clipped writes collide (the flag is already set; the
+    # trash bin's collisions are harmless, no stencil reads it)
     table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
 
     def offs(g):
@@ -178,6 +186,10 @@ def build_neighbor_list(
         dr = image_components(dc, cell, inv_cell)
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
         keep = valid & (d2 <= cut2) & (safe != rows[:, None])
+        if real is not None:
+            # candidates are real by construction (the stencil never reads
+            # the trash bin): only the centers need the mask
+            keep = keep & real[rows][:, None]
         # kept candidates to the front, ascending by atom index
         key = torch.sort(torch.where(keep, safe, big), dim=1).values
         if key.shape[1] < max_neighbors:
@@ -233,16 +245,26 @@ def build_sorted_neighbor_list(
     *,
     max_neighbors: int,
     grid: tuple,
+    real=None,
+    bin_capacity: int | None = None,
 ):
     """Cell-list build over bin-sorted atoms (the ``align_slots=False``
     branch of the JAX builder, without window worklists). The bin sort keeps
     every atom's neighbors close in memory, which the gathers of the K1 and
-    K3 kernels rely on for cache reuse."""
+    K3 kernels rely on for cache reuse.
+
+    `real`/`bin_capacity`: as in :func:`build_neighbor_list`. Non-real rows
+    (the halo and slab padding of the sharded path) sort last, into the
+    trash bin, and are excluded as centers and as neighbors."""
+    gx, gy, gz = grid
     _, bin_id = _bins(positions, inverse_cell(cell), grid)
+    if real is not None:
+        bin_id = torch.where(real, bin_id, gx * gy * gz)  # trash: sorts last
     order = torch.argsort(bin_id, stable=True)
     inv_order = torch.argsort(order)
     nl = build_neighbor_list(
         positions[order], cell, cutoff, max_neighbors=max_neighbors, grid=grid,
+        bin_capacity=bin_capacity, real=None if real is None else real[order],
     )
     return SortedNeighborList(
         order=order,

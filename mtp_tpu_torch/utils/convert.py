@@ -3,7 +3,8 @@ integrator's state, into the port.
 
 The conversions read the JAX objects' arrays through ``numpy.asarray``, so
 this module imports no ``jax``: the tests pass one model, or one trajectory's
-state, to both packages and hold them to computing the same thing.
+state (single-device or sharded), to both packages and hold them to
+computing the same thing.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from mtp_tpu_torch.md import integrators as itg
 from mtp_tpu_torch.models.mtp import MTPCoeffs, MTPModel
 from mtp_tpu_torch.ops.moments import MTPSchedule
+from mtp_tpu_torch.parallel.sharded_md import ShardedState
 from mtp_tpu_torch.utils.device import resolve_device
 
 
@@ -84,3 +86,29 @@ def aux_from_jax(aux, device="cuda"):
         else torch.as_tensor(np.array(leaf), device=dev)
         for leaf in aux
     ))
+
+
+def sharded_state_from_jax(sstate, rank: int, world: int, device="cuda", *, axes=(0,)):
+    """Rank `rank`'s :class:`~mtp_tpu_torch.parallel.sharded_md.ShardedState`
+    of a JAX ``ShardedState`` of `world` shards: the slots ``[rank*C,
+    (rank+1)*C)`` of its global arrays and the replicated fields, each in
+    its own dtype (ids as int64). The JAX state does not record the cell
+    vectors its partition cut along: `axes` gives them (the JAX
+    simulation's ``slab_axis``, and ``slab_axis2`` for bricks)."""
+    dev = resolve_device(device)
+    c = np.asarray(sstate.positions).shape[0] // world
+    sl = slice(rank * c, (rank + 1) * c)
+
+    def t(a, dtype=None, rows=True):
+        a = np.array(a)
+        return torch.as_tensor(a[sl] if rows else a, dtype=dtype, device=dev)
+
+    ids, real = np.asarray(sstate.ids), np.asarray(sstate.real)
+    return ShardedState(
+        positions=t(sstate.positions), velocities=t(sstate.velocities), forces=t(sstate.forces),
+        types=t(sstate.types, torch.int32), masses=t(sstate.masses), real=t(real, torch.bool),
+        ids=t(ids, torch.int64), cell=t(sstate.cell, rows=False),
+        potential_energy=t(sstate.potential_energy, rows=False),
+        virial=t(sstate.virial, rows=False), thermo=t(sstate.thermo, rows=False),
+        n_atoms=int(np.sum((ids >= 0) & real)), axes=tuple(axes),
+    )

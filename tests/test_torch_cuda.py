@@ -39,6 +39,8 @@ from mtp_tpu_torch.ops import window_disp as wd
 from mtp_tpu_torch.ops import window_giveback as wg
 from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape
 
+from _torch_spawn import World
+
 pytestmark = pytest.mark.cuda
 
 
@@ -481,3 +483,169 @@ def test_fit_steps_on_the_card_match_the_cpu(dev):
         want = getattr(cc, name)
         assert getattr(cg, name).device.type == "cuda"
         assert _err(getattr(cg, name).cpu(), want) <= 1e-9 * float(want.abs().max()), name
+
+
+# ------------------------------------------------------------- sharded path
+
+
+def _sharded_inputs(dev, level=16, species=2):
+    """A rank's halo-extended set in miniature: the 864-atom jittered box
+    with 96 padding rows appended (not real: the trash bin, no neighbors)
+    and the last 200 real rows as ghosts (real, but masked as centers), so N
+    = 960 is no box's atom count."""
+    m = make_mtp(level, species_count=species, seed=1)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6), type_pattern=tuple(range(species)))
+    pos = pos + np.random.default_rng(level).normal(0, 0.1, pos.shape)
+    n_real, n_pad, n_ghost = len(pos), 96, 200
+    pos = np.concatenate([pos, np.zeros((n_pad, 3))])
+    types = np.concatenate([types, np.zeros(n_pad, types.dtype)])
+    real = torch.arange(n_real + n_pad, device=dev) < n_real
+    own = torch.arange(n_real + n_pad, device=dev) < n_real - n_ghost
+    p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(cell, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    cut = model.cutoff + 0.6
+    swl = build_sorted_neighbor_list(p, c, cut, max_neighbors=64, grid=grid_shape(cell, cut),
+                                     real=real)
+    assert not bool(swl.overflow)
+    k = window_constants(model, ty, swl, center_mask=own)
+    return model, p[swl.order].contiguous(), c, swl, k, own[swl.order], real[swl.order]
+
+
+def test_kernels_on_sharded_inputs_match_plain(dev):
+    """K1-K5 on a sharded rank's rows (padding rows with no neighbors, ghost
+    rows with every slot masked, N = C + 2H) against their plain twins on
+    the same inputs; masked rows give zero site energy (their species
+    energy is zeroed) and zero pair forces, and K3 still fills ghost rows."""
+    model, pos_s, c, swl, k, own_s, real_s = _sharded_inputs(dev)
+    disp, mask = wd.window_geometry(pos_s, k["idx_t"], c, k["pair_valid_t"], model.cutoff)
+    disp_p, mask_p = wd.window_geometry_plain(pos_s, k["idx_t"], c, k["pair_valid_t"],
+                                              model.cutoff)
+    assert torch.equal(disp, disp_p) and torch.equal(mask, mask_p)
+    assert float(mask[:, ~own_s].abs().max()) == 0.0
+    args = (model.tables, disp, mask, k["it_row"], k["jtypes_t"], model.coeffs.radial_coeffs,
+            k["xi_full"])
+    pair = fm.pair_forces_mega(*args)
+    pair_p = fm.pair_forces_mega_plain(*args)
+    assert _err(pair, pair_p) < 5e-5
+    assert float(pair[:, :, ~own_s].abs().max()) == 0.0
+    site = fm.site_energies_mega(*args, k["esp"])
+    site_p = fm.site_energies_mega_plain(*args, k["esp"])
+    assert _err(site, site_p) < 1e-5 and float(site[~own_s].abs().max()) == 0.0
+    f = wg.window_giveback(pair, k["mirror_t"])
+    f_p = wg.window_giveback_plain(pair, k["mirror_t"])
+    assert _err(f, f_p) < 1e-5
+    ghost = real_s & ~own_s
+    assert float(f[ghost].abs().max()) > 0.0 and float(f[~real_s].abs().max()) == 0.0
+    out = fc.candidates_mega(*args, k["esp"])
+    out_p = fc.candidates_mega_plain(*args, k["esp"])
+    for name in ("site_e", "pair_tT"):
+        assert _err(out[name], out_p[name]) < 5e-5, name
+    for name in ("basis_members", "rad"):
+        assert _rel(out[name], out_p[name]) < 1e-5, name
+
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """A world of one NCCL rank for this module (one process group per
+    process), destroyed at the end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and the CUDA toolkit (runs on the card)")
+    import torch.distributed as dist
+
+    from mtp_tpu_torch.parallel.comm import Comm, init_world
+
+    torch.cuda.set_device(0)
+    init_world(0, 1, str(tmp_path_factory.mktemp("nccl") / "store"), backend="nccl")
+    yield Comm()
+    dist.destroy_process_group()
+
+
+def _sharded_alloy(dev, comm, **kw):
+    from mtp_tpu_torch.parallel.domain import partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import ShardedState
+    from mtp_tpu_torch.parallel.sharded_window import ShardedSimulation
+
+    m, st = _alloy(dev)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    cell = st.cell.cpu().numpy()
+    part = partition_slabs(*(getattr(st, a).cpu().numpy() for a in (
+        "positions", "velocities", "types", "masses")), cell, 1, cutoff=model.cutoff + 0.6)
+    ss = ShardedState.from_partition(part, cell, 0, device=dev)
+    sim = ShardedSimulation(model, comm, capacity=part.capacity, max_neighbors=64,
+                            grid=grid_shape(cell, model.cutoff + 0.6), skin=0.6,
+                            steps_per_rebuild=10, **kw)
+    return sim, ss
+
+
+@pytest.mark.parametrize("ensemble", ["nve", "nvt", "npt", "npt-tri"])
+def test_sharded_block_reads_nothing_back(dev, nccl_world, ensemble):
+    """A world of one NCCL rank: a ShardedSimulation block (steps, its
+    reductions through NCCL) runs under ``set_sync_debug_mode("error")``."""
+    assert nccl_world.transport == "nccl"
+    sim, ss = _sharded_alloy(dev, nccl_world)
+    st, ctx, f4 = sim.rebuild(ss)
+    st, _ = sim.steps(st, ctx, 1, ensemble=ensemble, refresh=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, stale = sim.steps(st, ctx, 5, ensemble=ensemble)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not bool(torch.stack([*f4, stale]).any())
+    assert bool(out.positions.isfinite().all())
+
+
+def test_sharded_run_repeats_bit_for_bit(dev, nccl_world):
+    """Two run_async calls from one state on a world of one NCCL rank:
+    positions, forces, energy and flags bit-equal (every sum in a fixed
+    order, the give-back's index_add over unique rows)."""
+    sim, ss = _sharded_alloy(dev, nccl_world, compute_virial=True)
+    a, fa = sim.run_async(ss, 20, ensemble="nvt", temperature=300.0)
+    b, fb = sim.run_async(ss, 20, ensemble="nvt", temperature=300.0)
+    assert not bool(fa.any()) and not bool(fb.any())
+    for name in ("positions", "velocities", "forces", "potential_energy", "virial", "thermo"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_four_cards_match_single_device(dev, tmp_path):
+    """The 32,000-atom box on 2x2 bricks, one NCCL rank per card (ring
+    shifts between cards, the two-hop halo and give-back, migration), 60
+    NVE steps through K1-K4, against the single-device run from the same
+    state on the first card: max|dx| < 1e-4 A, max|dF| < 5e-4 eV/A (phase
+    3's force gate), dE/atom < 1e-6 eV. Needs four cards; skips on fewer."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (one NCCL rank per card)")
+    m = make_mtp(16, species_count=1, seed=0)
+    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (20, 20, 20))
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    st, _, fl = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
+                           compute_virial=False).run_async(st, 60)
+    assert not bool(fl)
+    box = {k: getattr(st, a).cpu().numpy() for k, a in (
+        ("pos", "positions"), ("vel", "velocities"), ("types", "types"), ("masses", "masses"),
+        ("cell", "cell"))}
+    world = World("_torch_parallel_ranks:brick_run", 4, tmp_path, timeout=240.0,
+                  backend="nccl", box=box, n_steps=60)
+    try:
+        ref, _, fl = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
+                                compute_virial=False).run_async(st, 60)
+        ranks = world.results()
+    finally:
+        world.kill()
+    assert not bool(fl)
+    r0 = ranks[0]
+    print(f"4 cards, 2x2 bricks: C={r0['capacity']} H={r0['halo']} rows {r0['rows']}; "
+          f"ms per step {[round(r['ms_per_step'], 3) for r in ranks]}")
+    for r in ranks:
+        assert r["transport"] == "nccl" and not r["flags"]
+        for name, (launched, plain) in r["launches"].items():
+            assert launched > 0 and plain == 0, name
+    dx = float(np.abs(r0["positions"] - ref.positions.cpu().numpy()).max())
+    df = float(np.abs(r0["forces"] - ref.forces.cpu().numpy()).max())
+    de = abs(r0["energy"] - float(ref.potential_energy)) / len(pos)
+    print(f"vs single device after 60 steps: max|dx|={dx:.3e} max|dF|={df:.3e} dE/atom={de:.3e}")
+    assert dx < 1e-4 and df < 5e-4 and de < 1e-6

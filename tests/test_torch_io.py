@@ -39,8 +39,8 @@ def _assert_same_data(a, b):
 
 def test_import_leaves_jax_out():
     """`import mtp_tpu_torch` (every module of the main path, of active
-    learning and of training, the host utilities and the root chip_smoke.py)
-    must not import jax. A
+    learning, of training and of multi-device MD, the host utilities and the
+    root chip_smoke.py) must not import jax. A
     subprocess: this test process already has jax loaded."""
     code = (
         "import sys\n"
@@ -53,6 +53,8 @@ def test_import_leaves_jax_out():
         "import mtp_tpu_torch.md.minimize, mtp_tpu_torch.md.output, mtp_tpu_torch.io.lammps_data\n"
         "import mtp_tpu_torch.train.fit, mtp_tpu_torch.utils.native, mtp_tpu_torch.utils.golden\n"
         "import mtp_tpu_torch.utils.accuracy_gate\n"
+        "import mtp_tpu_torch.parallel.sharded_window, mtp_tpu_torch.parallel.observables\n"
+        "import mtp_tpu_torch.parallel.domain, mtp_tpu_torch.parallel.comm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mtp_tpu' or m.startswith('mtp_tpu.'))\n"
         "print(bad)\n"
