@@ -29,9 +29,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. Active-learning kernels on the phase-3 box, with an MVS state built by
    ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
    K5 against its plain twin on every output, K6 and K7 (through the autograd
-   backward) against theirs, and the fp32 window grade step (K1, K5, K3)
-   against the float64 plain path (b, grades, forces, energy; tolerances
-   and their reasons at the top of this file).
+   backward) against theirs, and the fp32 model's window grade step (K1,
+   K5 in float64, K3) against the float64 plain path (b, grades, forces,
+   energy; tolerances and their reasons at the top of this file).
 7. The AL path at full width (``bench_suite.py`` configuration 4b): level
    16, one species, an MVS from three perturbed 4,000-atom boxes, the
    32,000-atom box equilibrated 60 steps, then ``run_with_extrapolation`` for
@@ -109,10 +109,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    padding rows in the trash bin, ghost rows masked as centers), at the
    kernel rows' limits.
 
+12. The long narrow box (``mtp_tpu_torch.parallel.sharded_md``'s
+   row-gather API on the one sharded engine), before phase 5's profiler
+   part: the level-16 fp32 model on fcc 500 x 4 x 4 cells (32,000 atoms,
+   2,000 x 16 x 16 A, 300 K), a grid of (357, 2, 2) bins at cutoff + skin.
+   (a) A world of one NCCL rank: ``make_sharded_md_block`` NVE and NVT, 6
+   blocks of 10 steps each from the fresh 300 K lattice, beside
+   ``Simulation.run_async`` in six calls of 10 from the same state; NVE
+   bit-equal, NVT within 1e-4 A and phase 3's force gate; K1-K4 launched,
+   no plain twin called; ms per step and atom-steps/s of both; an NVE
+   block under the sync debugger; the energy, forces and virial of
+   ``compute_sharded_forces`` at the final positions held to phase 3's
+   gates against the float64 plain path. (b) 2 gloo rank processes on the
+   card (``mtp_tpu_torch.parallel.launch``, staged transport), slabs along
+   x: 3 NVE blocks of 10 steps, then 3 NVT, then ``make_sharded_grades``
+   and the monitor's standalone engine with phase 7's MVS, and the window
+   engine's grade pass at the same positions; its energy, forces and
+   virial held to phase 3's gates, and the grades of both engines to phase
+   6's, against the float64 plain path; besides, the standalone grades
+   within phase 6's gate of the window engine's per atom and within 1e-3
+   in the max grade. A witness of where fp32 grade error comes from: the
+   fp32 plain path's grades against float64 at these positions and
+   translated by -1000 A along x, by tenth of the box along x (printed, not
+   gated). K1-K5 launched with no plain call, then held against their
+   plain twins on each rank's rows. Then
+   ``mtp_tpu_torch.examples.accuracy_validation.main()`` at its default
+   size. The phase must take under a minute.
+
 Prints one JSON line of the ensembles' numbers, one of the sharded path,
-one of training and the gate, then one of all seven kernels (with their
-launch counts in phase 11 and their errors on (b)'s rank rows), before the
-last line, and as the last line
+one of the long box, one of training and the gate, then one of all seven
+kernels (with their launch counts in phases 11 and 12 and their errors on
+the rank rows of 11b and 12b), before the last line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present or the package is missing.
 """
@@ -143,11 +170,11 @@ TOL = {
     "site_energies_mega": 1e-5,  # eV
 }
 GATE_DE, GATE_DF, GATE_DW = 1e-6, 5e-4, 5e-2  # tools/tpu_smoke.py:76
-# K5 vs its plain twin, fp32 on the card: site energies and pair forces as K4
-# and K2; basis members and radial rows relative to their largest entry (sums
-# of up to ~60 fp32 terms of scale ~10-60; 3-6e-7 measured on an H100); K6
-# likewise; K7 (the gradient of the modular energy path) against K2's plain
-# twin as K2.
+# K5 vs its plain twin on the card, both in float64 from fp32 inputs: site
+# energies and pair forces (rounded to fp32) as K4 and K2; basis members and
+# radial rows relative to their largest entry (3-6e-7 measured on an H100
+# while K5 ran in fp32); K6 in fp32 likewise; K7 (the gradient of the modular
+# energy path) against K2's plain twin as K2.
 TOL_K5 = {"site_e": 1e-5, "pair_tT": 5e-5, "basis_members": 1e-5, "rad": 1e-5}
 K5_RELATIVE = ("basis_members", "rad")
 TOL_K6_REL, TOL_K7 = 1e-5, 5e-5
@@ -157,8 +184,10 @@ TOL_K6_REL, TOL_K7 = 1e-5, 5e-5
 # prices the structural null directions of b at 1/reg), so fp32 rounding of
 # b is amplified: rounding the float64 b to fp32 alone moves grades by
 # 5.5e-4 of the max grade, and the kernel path by 1.2e-3 (the max grade by
-# 4e-5), measured on an H100. Each run prints its own rounding floor beside
-# the error.
+# 4e-5) while K5 ran in fp32, measured on an H100; on phase 12's long box
+# with phase 7's MVS the fp32 K5 reached 9.8e-3, so K5 now computes in
+# float64 and its b is not rounded. Each run prints the rounding floor of b
+# beside the error.
 GATE_B_REL, GATE_GRADE_REL, GATE_MAX_GRADE_REL = 1e-5, 1e-2, 1e-3
 # phase 8a: 20 NPT steps, fp32 kernel path vs float64 plain path on the
 # phase-3 box: max|dx| [A], the cell relative to its largest entry, and the
@@ -168,8 +197,9 @@ GATE_B_REL, GATE_GRADE_REL, GATE_MAX_GRADE_REL = 1e-5, 1e-2, 1e-3
 # measured), and its sum against the f64 virial, held to GATE_DW as the
 # virial is (6.3e-5 measured).
 GATE_NPT_DX, GATE_NPT_CELL, GATE_NPT_BV, GATE_VATOM = 5e-5, 5e-6, 5e-5, 5e-5
-# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet): fp32 and fp64 outside the tensor
+# cores, HBM3
+PEAK_FLOPS, PEAK_FLOPS_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 
 
 def check(cond, msg):
@@ -252,16 +282,17 @@ def kernel_work(name, model, n, j, live):
                               pairs_in + 4 * B * n + 12 * j * n),
         "candidates_mega": (
             live * (basic + deriv + contract + gmu_rad) + n * (fwd + readout + rev),
-            pairs_in + 8 * n + 4 * n * (n_scal + S * MU * RB) + 12 * j * n,
+            pairs_in + 8 * n + 8 * n * (n_scal + S * MU * RB) + 12 * j * n,  # b in float64
         ),
     }[name]
 
 
 def bound(name, model, n, j, live):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    fp32 operations over the peak rate."""
+    operations over the peak rate of their type (K5's are float64)."""
     flops, nbytes = kernel_work(name, model, n, j, live)
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    peak = PEAK_FLOPS_F64 if name == "candidates_mega" else PEAK_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -427,11 +458,12 @@ def stage_ms(calls, reps=10):
             us = _device_us(evt)
             if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
                 continue
-            m = re.search(r"pair_kernel<.*, (\d)>\(", evt.key)
-            d = re.search(r"dag_kernel<(\d)", evt.key)
+            # pair_kernel<shape, stage, type>, dag_kernel<mode, staged, type>
+            m = re.search(r"pair_kernel<.*, (\d), (float|double)>\(", evt.key)
+            d = re.search(r"dag_kernel<(\d), \w+, (float|double)>", evt.key)
             k = re.search(r"(\w+(<[^()]*>)?)\(", evt.key)  # a kernel's name, template included
-            name = (_STAGES["pair_kernel"][int(m.group(1))] if m else
-                    _STAGES["dag_kernel"][int(d.group(1))] if d else
+            name = (f"{_STAGES['pair_kernel'][int(m.group(1))]} ({m.group(2)})" if m else
+                    f"{_STAGES['dag_kernel'][int(d.group(1))]} ({d.group(2)})" if d else
                     k.group(1)[-40:] if k else evt.key[:40])
             per[name] = per.get(name, 0.0) + us / reps / 1e3
         out[label] = per
@@ -1207,16 +1239,17 @@ def _f64_reference(m, pos, types, cell, dev, inverse_active_set=None):
         model64 = dataclasses.replace(model64, inverse_active_set=torch.as_tensor(
             inverse_active_set, dtype=torch.float64, device=dev))
         b, _ = candidate_vectors(model64, p, t, nl.idx, c)
+        out["b"] = b
         out["grades"] = nbh_grades(b, model64.inverse_active_set)
     return out
 
 
-def _gates(tag, n, e32, f32, w32, ref):
+def _gates(tag, n, e32, f32, w32, ref, phase="11 sharded"):
     """Phase 3's gates for fp32 energy, forces and virial against `ref`."""
     de = abs(float(e32) - float(ref["energy"])) / n
     df = max_err(f32, ref["forces"])
     dw = max_err(w32, ref["virial"])
-    print(f"[11 sharded] {tag}: dE/atom={de:.3e} (gate {GATE_DE:.0e}) max|dF|={df:.3e} "
+    print(f"[{phase}] {tag}: dE/atom={de:.3e} (gate {GATE_DE:.0e}) max|dF|={df:.3e} "
           f"(gate {GATE_DF:.0e}) max|dW|={dw:.3e} (gate {GATE_DW:.0e})")
     check(de < GATE_DE and df < GATE_DF and dw < GATE_DW, f"{tag}: gate")
     return dict(de_per_atom=de, max_df=df, max_dw=dw)
@@ -1558,6 +1591,387 @@ def sharded_phase(dev, card, m, model, state, al_model):
         k: {"a": la.get(k, 0), "b": lb.get(k, 0)} for k in names}, errs
 
 
+# phase 12: 6 blocks of 10 steps from the fresh 300 K lattice (its first
+# 30 steps outrun a 0.6 A skin), 2 ranks in 12b
+NARROW = dict(reps=(500, 4, 4), n_steps=10, blocks=6, world=2, timeout_s=300.0)
+
+
+def narrow_box(dev):
+    """Phase 12's box: fcc 500 x 4 x 4 cells at a = 4.0 A (32,000 atoms,
+    2,000 x 16 x 16 A) at 300 K in fp32, from the seed."""
+    import torch
+
+    from mtp_tpu_torch.md.simulation import make_lattice
+    from mtp_tpu_torch.md.state import init_state, thermalize
+
+    pos, types, cell = make_lattice("fcc", 4.0, NARROW["reps"])
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, dtype=torch.float32, device=dev)
+    return thermalize(torch.Generator(device=dev).manual_seed(SEED), st, 300.0)
+
+
+def narrow_world_of_one(dev, card, m, model, state):
+    """Phase 12a: the long box on a world of one NCCL rank through the
+    row-gather API, NVE and NVT blocks beside the single-device run.
+    Returns (report, launch counts of K1-K4 in the NVE run)."""
+    import torch
+    import torch.distributed as dist
+
+    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.md.simulation import Simulation
+    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.parallel.comm import Comm, init_world
+    from mtp_tpu_torch.parallel.domain import partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import (
+        ShardedState,
+        compute_sharded_forces,
+        make_sharded_md_block,
+    )
+
+    n = state.n_atoms
+    cell = state.cell.cpu().numpy()
+    w_cut = model.cutoff + 0.6
+    grid = grid_shape(cell, w_cut)
+    k, blocks = NARROW["n_steps"], NARROW["blocks"]
+    kernels = main_path_kernels()
+    report = dict(atoms=n, grid=list(grid), steps=k * blocks, card=card)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(dev)
+        init_world(0, 1, f"{tmp}/store", backend="nccl")
+        try:
+            comm = Comm()
+            part = partition_slabs(*(getattr(state, a).cpu().numpy() for a in (
+                "positions", "velocities", "types", "masses")), cell, 1, cutoff=w_cut,
+                capacity=n)
+            ss0 = ShardedState.from_partition(part, cell, 0, dtype=torch.float32, device=dev)
+            # both tally the virial every step, as the JAX block does
+            one = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=k,
+                             compute_virial=True)
+            for ens in ("nve", "nvt"):
+                kw = dict(ensemble=ens, temperature=300.0, tdamp=0.1)
+                block = make_sharded_md_block(model, comm, capacity=n, max_neighbors=64,
+                                              grid=grid, skin=0.6, n_steps=k, **kw)
+                check(block.sim.grid == (357, 2, 2), f"phase 12 grid {block.sim.grid}")
+                block(ss0)  # warm-up, each as it is timed
+                one.run_async(state, k, **kw)
+                torch_sync()
+                reset_counts()
+                t0 = time.perf_counter()
+                s, flags = ss0, []
+                for _ in range(blocks):
+                    s, f = block(s)
+                    flags.append(f.any())
+                torch_sync()
+                wall = time.perf_counter() - t0
+                launches = {kk.name: kk.launches for kk in kernels}
+                plain = {kk.name: kk.plain_calls for kk in kernels}
+                t0 = time.perf_counter()
+                ref, aux = state, None
+                for _ in range(blocks):  # each call refreshes on its new list, as a block does
+                    ref, aux, f = one.run_async(ref, k, aux=aux, **kw)
+                    flags += [f.overflow, f.stale]
+                torch_sync()
+                wall1 = time.perf_counter() - t0
+                check(not bool(torch.stack(flags).any()), f"phase 12a {ens} flags set")
+                for kk in kernels:
+                    check(launches[kk.name] > 0, f"{kk.name} was not launched on the long box")
+                    check(plain[kk.name] == 0, f"{kk.name}'s plain version ran on the long box")
+                bit = all(torch.equal(getattr(s, a), getattr(ref, a)) for a in (
+                    "positions", "velocities", "forces", "potential_energy"))
+                dx = float((s.positions - ref.positions).abs().max())
+                dfs = float((s.forces - ref.forces).abs().max())
+                steps = k * blocks
+                report[ens] = dict(
+                    bit_equal=bit, max_dx=dx, max_df=dfs, launches=launches, plain=plain,
+                    ms_per_step=wall / steps * 1e3, atom_steps_per_s=n * steps / wall,
+                    single_ms_per_step=wall1 / steps * 1e3,
+                    single_atom_steps_per_s=n * steps / wall1,
+                )
+                print(f"[12a long box, world of 1] {ens}: {n} atoms, grid {grid}, {blocks} blocks "
+                      f"of {k}: {wall / steps * 1e3:.4f} ms per step ({n * steps / wall:.1f} "
+                      f"atom-steps/s), single-device {wall1 / steps * 1e3:.4f} ms "
+                      f"({n * steps / wall1:.1f}); bit-equal {bit}, max|dx|={dx:.3e} A "
+                      f"max|dF|={dfs:.3e} eV/A; launches {launches}; plain calls {plain} "
+                      f"on {card}")
+                if ens == "nve":
+                    check(bit, "phase 12a NVE left the single-device trajectory")
+                    nve_block, nve_out, nve_launches = block, s, launches
+                else:
+                    check(dx < 1e-4 and dfs < GATE_DF, "phase 12a NVT left the single-device run")
+            # a block reads nothing back
+            torch_sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                nve_block(nve_out)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            # the kernel path's energy, forces and virial at the final NVE
+            # positions against float64
+            out, fl = compute_sharded_forces(model, comm, capacity=n, max_neighbors=64,
+                                             grid=grid, skin=0.6)(nve_out)
+            check(not bool(fl.any()), "phase 12a force evaluation flags")
+            pos, frc = out.gather_all([out.positions, out.forces], comm)
+            report["f64"] = _gates("12a long box vs f64 plain", n, out.potential_energy,
+                                   torch.as_tensor(frc, device=dev), out.virial,
+                                   _f64_reference(m, pos, state.types.cpu().numpy(), cell, dev),
+                                   phase="12 long box")
+        finally:
+            dist.destroy_process_group()
+    print("[12a long box, world of 1] an NVE block ran under the sync debugger")
+    return report, nve_launches
+
+
+def narrow_rank(rank, world, data_dir):
+    """Phase 12b's rank (a ``mtp_tpu_torch.parallel.launch`` rank of gloo,
+    its messages staged through host memory, on the one card): an NVE and
+    an NVT block, the standalone grades (``make_sharded_grades`` and the
+    monitor's engine) and the window engine's grade pass, then K1-K5
+    against their plain twins on this rank's rows."""
+    import dataclasses
+
+    import torch
+
+    from mtp_tpu_torch.al.driver import ShardedExtrapolationMonitor
+    from mtp_tpu_torch.io.basis_gen import make_mtp
+    from mtp_tpu_torch.kernels import all_kernels, reset_counts
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.parallel.comm import Comm
+    from mtp_tpu_torch.parallel.domain import halo_capacities, partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import (
+        ShardedState,
+        make_sharded_grades,
+        make_sharded_md_block,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = Comm(transport="gloo-staged")
+    d = np.load(Path(data_dir) / "narrow.npz")
+    model = MTPModel.from_data(make_mtp(16, species_count=1, seed=SEED), device=dev,
+                               dtype=torch.float32)
+    model = dataclasses.replace(model, inverse_active_set=torch.as_tensor(
+        d["inv"], dtype=torch.float32, device=dev))
+    cell = d["cell"]
+    w_cut = model.cutoff + 0.6
+    part = partition_slabs(d["pos"], d["vel"], d["types"], d["masses"], cell, world, cutoff=w_cut)
+    hc = halo_capacities(part, cell, (world,), w_cut)
+    common = dict(capacity=part.capacity, max_neighbors=64, grid=grid_shape(cell, w_cut),
+                  skin=0.6, n_steps=NARROW["n_steps"], halo_capacity=hc)
+    nve = make_sharded_md_block(model, comm, **common)
+    nvt = make_sharded_md_block(model, comm, ensemble="nvt", temperature=300.0, tdamp=0.1,
+                                **common)
+    ss = ShardedState.from_partition(part, cell, rank, dtype=torch.float32, device=dev)
+    nve(ss)  # warm-up, discarded
+    ids0 = set(ss.ids[ss.real].tolist())
+    comm.barrier()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    s, flags = ss, []
+    half = NARROW["blocks"] // 2
+    for block in [nve] * half + [nvt] * half:  # an NVE run, then NVT from it
+        s, f = block(s)
+        flags.append(f.any())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grid_cut = grid_shape(cell, model.cutoff)
+    grades_fn = make_sharded_grades(model, comm, capacity=part.capacity, max_neighbors=64,
+                                    grid=grid_cut, halo_capacity=hc)
+    g_std, grades_std, g_flags = grades_fn(s)
+    mon = ShardedExtrapolationMonitor(model, comm, capacity=part.capacity, grid=grid_cut,
+                                      max_neighbors=64, halo_capacity=hc)
+    g_mon = float(mon.evaluate(s))
+    sim = nvt.sim
+    st, ctx, f4 = sim.rebuild(s)
+    win = sim.grade_eval(st, ctx)
+    torch.cuda.synchronize()
+    counts = {k.name: (k.launches, k.plain_calls) for k in all_kernels()}
+    # after the counts: launches to compare kernels count nowhere
+    errs, rows = sharded_kernel_errors(sim, st, ctx, "  ")
+    pos, frc, grades = st.gather_all([st.positions, win["forces"], win["grades"]], comm, root=0)
+    (std,) = s.gather_all([grades_std], comm, root=0)
+    mon_grades = mon.nbh_grades  # a collective
+    flags = torch.stack(flags + [g_flags, torch.stack(list(f4)).any()])
+    return dict(
+        rank=rank, capacity=part.capacity, halo=list(hc), NE=sim.NE, wall_s=wall,
+        ms_per_step=wall / (NARROW["blocks"] * NARROW["n_steps"]) * 1e3, flags=flags.tolist(),
+        arrived=len(set(s.ids[s.real].tolist()) - ids0), own=int(s.real.sum()), counts=counts,
+        kernel_errs=errs, kernel_rows=rows, max_grade_standalone=float(g_std),
+        max_grade_monitor=g_mon, max_grade_window=float(win["max_grade"]),
+        monitor_max_neighbors=mon.max_neighbors,
+        result=None if rank else dict(
+            pos=pos, forces=frc, grades=grades, grades_standalone=std,
+            grades_monitor=mon_grades, energy=float(win["energy"]),
+            virial=win["virial"].cpu().numpy()),
+    )
+
+
+def narrow_two_ranks(dev, card, m, al_model, state):
+    """Phase 12b: the long box as 2 slabs along x on 2 gloo rank processes
+    sharing the card. Returns (report, launch counts summed over the ranks,
+    {kernel: max_abs_err over the ranks' rows})."""
+    import torch
+
+    from mtp_tpu_torch.parallel.launch import World
+
+    inv = al_model.inverse_active_set.cpu().numpy()
+    world = NARROW["world"]
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = {k: getattr(state, a).cpu().numpy() for k, a in (
+            ("pos", "positions"), ("vel", "velocities"), ("types", "types"),
+            ("masses", "masses"), ("cell", "cell"))}
+        np.savez(Path(tmp) / "narrow.npz", inv=inv, **arrays)
+        w = World("chip_smoke:narrow_rank", world, Path(tmp) / "world",
+                  timeout=NARROW["timeout_s"], backend="gloo", path=[REPO], data_dir=tmp)
+        try:
+            ranks = w.results()
+        finally:
+            w.kill()
+            for r in range(world):
+                for line in w.log(r).splitlines()[-20:]:
+                    print(f"[12b rank {r}] {line}")
+    n = state.n_atoms
+    for r in ranks:
+        check(not any(r["flags"]), f"phase 12b rank {r['rank']}: flags set {r['flags']}")
+        check(r["monitor_max_neighbors"] == 64, "phase 12b: the standalone engine regrew")
+    counts = {k: sum(r["counts"][k][0] for r in ranks) for k in ranks[0]["counts"]}
+    plain = {k: sum(r["counts"][k][1] for r in ranks) for k in ranks[0]["counts"]}
+    print(f"[12b long box, 2 ranks] {n} atoms as 2 slabs on one card (gloo, staged through the "
+          f"host): C={ranks[0]['capacity']} H={ranks[0]['halo']} rows per rank "
+          f"{ranks[0]['NE']}; atoms arrived {[r['arrived'] for r in ranks]}; launches {counts}; "
+          f"plain calls {plain}")
+    for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
+                 "candidates_mega"):
+        check(counts[name] > 0, f"{name} was not launched on the long box's 2 ranks")
+        check(plain[name] == 0, f"{name}'s plain version ran on the long box's 2 ranks")
+    errs = {k: max(r["kernel_errs"][k] for r in ranks) for k in ranks[0]["kernel_errs"]}
+    print(f"[12b long box, 2 ranks] kernels vs plain twins on each rank's rows "
+          f"{[r['kernel_rows'] for r in ranks]}: max|kernel - plain| {errs}")
+    for name, tol in TOL.items():
+        check(errs[name] <= tol, f"{name} disagrees with its plain version on a rank's rows")
+    check(sum(r["own"] for r in ranks) == n, "atoms lost in migration")
+    steps = NARROW["blocks"] * NARROW["n_steps"]
+    wall = max(r["wall_s"] for r in ranks)
+    ms = [r["ms_per_step"] for r in ranks]
+    print(f"[12b long box, 2 ranks] {NARROW['blocks'] // 2} NVE then {NARROW['blocks'] // 2} NVT "
+          f"blocks of {NARROW['n_steps']}: {ms} ms per "
+          f"step by rank, {n * steps / wall:.1f} atom-steps/s on {card}")
+    res = ranks[0]["result"]
+    cell = state.cell.cpu().numpy()
+    f64 = _f64_reference(m, res["pos"], state.types.cpu().numpy(), cell, dev,
+                         inverse_active_set=inv)
+    gate = _gates("12b long box, 2 ranks vs f64 plain", n, res["energy"],
+                  torch.as_tensor(res["forces"], device=dev),
+                  torch.as_tensor(res["virial"], device=dev), f64, phase="12 long box")
+    from mtp_tpu_torch.al.grades import nbh_grades
+
+    g64 = f64["grades"].cpu().numpy()
+    top = float(g64.max())
+    inv64 = torch.as_tensor(inv, dtype=torch.float64, device=dev)
+    floor = float(np.abs(nbh_grades(f64["b"].float().double(), inv64).cpu().numpy()
+                         - g64).max()) / top
+    # both engines' grades (the window engine's, and the standalone one's
+    # through make_sharded_grades and the monitor) against float64 at phase
+    # 6's gate; besides, the standalone grades against the window engine's
+    grade_errs = {name: float(np.abs(res[name] - g64).max()) / top
+                  for name in ("grades", "grades_standalone", "grades_monitor")}
+    vs_window = float(np.abs(res["grades_standalone"] - res["grades"]).max()) / top
+    worst = int(np.abs(res["grades_standalone"] - g64).argmax())
+    print(f"[12b long box, 2 ranks] grades vs f64, max|dg|/max g (gate {GATE_GRADE_REL:.0e}; "
+          f"f64 b rounded to fp32 alone: {floor:.3e}): {grade_errs}; standalone vs window "
+          f"{vs_window:.3e}; the standalone's worst atom {worst} at "
+          f"x={res['pos'][worst, 0]:.4f} A: f64 {g64[worst]:.6f}, window "
+          f"{res['grades'][worst]:.6f}, standalone {res['grades_standalone'][worst]:.6f}")
+    check(grade_errs["grades"] < GATE_GRADE_REL, "phase 12b window grades vs f64")
+    check(grade_errs["grades_standalone"] < GATE_GRADE_REL,
+          "phase 12b standalone grades vs f64")
+    check(vs_window < GATE_GRADE_REL, "phase 12b standalone grades vs the window engine's")
+    witness = fp32_grade_witness(m, res["pos"], state.types.cpu().numpy(), cell, dev, inv, g64)
+    check(np.array_equal(res["grades_monitor"], res["grades_standalone"]),
+          "the monitor's standalone grades")
+    g_win = ranks[0]["max_grade_window"]
+    g_std = ranks[0]["max_grade_standalone"]
+    dgm = abs(g_win - top) / top
+    dstd = abs(g_std - g_win) / g_win
+    print(f"[12b long box, 2 ranks] max grade window {g_win:.6f} ({dgm:.3e} from f64, gate "
+          f"{GATE_MAX_GRADE_REL:.0e}), standalone {g_std:.6f} ({dstd:.3e} from the window "
+          f"engine's, limit 1e-3), monitor {ranks[0]['max_grade_monitor']:.6f}")
+    check(dgm < GATE_MAX_GRADE_REL, "phase 12b max grade vs f64")
+    check(dstd < 1e-3, "phase 12b standalone grade vs the window engine's")
+    check(ranks[0]["max_grade_monitor"] == g_std, "the monitor's standalone grade")
+    report = dict(atoms=n, ranks=world, capacity=ranks[0]["capacity"], halo=ranks[0]["halo"],
+                  rows_per_rank=ranks[0]["NE"], arrived=[r["arrived"] for r in ranks],
+                  ms_per_step=ms, atom_steps_per_s=n * steps / wall, f64=gate,
+                  grade_rel=grade_errs, grade_rounding_floor=floor, max_grade_rel=dgm,
+                  standalone_vs_window_rel=dstd, standalone_vs_window_grades_rel=vs_window,
+                  fp32_grade_witness=witness,
+                  kernel_rows=[r["kernel_rows"] for r in ranks], card=card)
+    return report, counts, errs
+
+
+def fp32_grade_witness(m, pos, types, cell, dev, inv, g64):
+    """Where fp32 grade error comes from: the fp32 plain path's grades (the
+    arithmetic of K5 before it computed in float64; the product in float64)
+    against float64, at `pos` and at `pos` translated by -1000 A along x
+    (its own float64 reference), with the largest error in each tenth of the
+    box along x. If fp32 coordinates near 2,000 A caused the error, the
+    translation would move it; if the arithmetic does, it stays."""
+    import torch
+
+    from mtp_tpu_torch.al.grades import candidate_vectors, nbh_grades
+    from mtp_tpu_torch.models.mtp import MTPModel
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+
+    model32 = MTPModel.from_data(m, device=dev, dtype=torch.float32)
+    inv64 = torch.as_tensor(inv, dtype=torch.float64, device=dev)
+    c32 = torch.as_tensor(cell, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    cut = model32.cutoff + 0.6
+    length = float(cell[0, 0])
+    out = {}
+    for tag, shift in (("at", 0.0), ("translated", -1000.0)):
+        p32 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        p32 = p32 - torch.tensor([1000.0, 0.0, 0.0], device=dev) if shift else p32
+        ref = g64 if not shift else _f64_reference(
+            m, p32.double().cpu().numpy(), types, cell, dev, inverse_active_set=inv
+        )["grades"].cpu().numpy()
+        nl = build_neighbor_list(p32, c32, cut, max_neighbors=64, grid=grid_shape(cell, cut))
+        check(not bool(nl.overflow), "witness list overflow")
+        b32, _ = candidate_vectors(model32, p32, t, nl.idx, c32)
+        err = np.abs(nbh_grades(b32.double(), inv64).cpu().numpy() - ref) / float(ref.max())
+        tenth = np.clip((np.asarray(pos)[:, 0] // (length / 10)).astype(int), 0, 9)
+        out[tag] = dict(max_rel=float(err.max()),
+                        by_tenth=[float(err[tenth == q].max()) for q in range(10)])
+    print(f"[12b long box, witness] the fp32 plain path's grades vs f64, max|dg|/max g at "
+          f"these positions {out['at']['max_rel']:.3e}, translated by -1000 A along x "
+          f"{out['translated']['max_rel']:.3e}; largest by tenth of the box along x: at "
+          f"{[f'{e:.2e}' for e in out['at']['by_tenth']]}, translated "
+          f"{[f'{e:.2e}' for e in out['translated']['by_tenth']]}")
+    return out
+
+
+def narrow_phase(dev, card, m, model, al_model):
+    """Phase 12: the long narrow box, (a) and (b), then the accuracy
+    validation example at its default size. Returns (report, {kernel name:
+    {"a": launches, "b": launches}}, {kernel name: max_abs_err on (b)'s rank
+    rows})."""
+    from mtp_tpu_torch.examples import accuracy_validation
+
+    t0 = time.perf_counter()
+    state = narrow_box(dev)
+    a, la = narrow_world_of_one(dev, card, m, model, state)
+    b, lb, errs = narrow_two_ranks(dev, card, m, al_model, state)
+    with tempfile.TemporaryDirectory() as tmp:
+        av = accuracy_validation.main(device="cuda", out_dir=tmp)
+    wall = time.perf_counter() - t0
+    print(f"[12 long box] phase 12 took {wall:.1f} s")
+    check(wall < 60.0, "phase 12 took a minute or more")
+    names = set(la) | set(lb)
+    return dict(world_of_one=a, two_ranks=b, accuracy_validation=av, seconds=wall), {
+        k: {"a": la.get(k, 0), "b": lb.get(k, 0)} for k in names}, errs
+
+
 def main() -> int:
     import torch
 
@@ -1716,6 +2130,11 @@ def main() -> int:
     sharded_report, sharded_counts, sharded_errs = sharded_phase(dev, card, m, model, state,
                                                                  al_model)
 
+    # ---- 12. the long narrow box: the row-gather API on one NCCL rank and on
+    # two ranks sharing the card, the standalone grades; before phase 5's
+    # profiler part
+    narrow_report, narrow_counts, narrow_errs = narrow_phase(dev, card, m, model, al_model)
+
     # ---- 5, continued: device time by stage kernel. Taken after phase 7:
     # a torch.profiler session slows the host-bound runs that follow it in
     # the process and widens their spread (`python -m mtp_tpu_torch.utils.prof
@@ -1741,9 +2160,12 @@ def main() -> int:
         row["sharded_launches"] = sharded_counts.get(row["name"], {"a": 0, "b": 0})
         # (b)'s kernel-vs-plain check on the rank rows; None off the path
         row["sharded_max_abs_err"] = sharded_errs.get(row["name"])
+        row["narrow_launches"] = narrow_counts.get(row["name"], {"a": 0, "b": 0})
+        row["narrow_max_abs_err"] = narrow_errs.get(row["name"])
     print(card)
     print(json.dumps({"ensembles": ens_report}))
     print(json.dumps({"sharded": sharded_report}))
+    print(json.dumps({"narrow": narrow_report}))
     print(json.dumps({"oracle": oracle_report, "training": train_report,
                       "accuracy_gate": gate_report}))
     print(json.dumps({"kernels": rows}))

@@ -15,7 +15,8 @@ Two paths, as in the JAX package:
   device. In float64 it is the port's grade oracle.
 * window (:func:`candidates_and_forces_window`, :func:`grade_eval_window`):
   the Simulation's bin-sorted list; K1 displacements, the K5 grade-step
-  kernel, and the K3 give-back on the card.
+  kernel (float64 arithmetic and a float64 b from float32 inputs), and the K3
+  give-back on the card.
 
 Coefficient-vector layout (must match the MVS active-set files,
 pair_mtp_extrapolation.cpp:533): [radial (S,S,MU,RB) row-major | species (S) |
@@ -157,9 +158,10 @@ def grade_eval_window(model, positions, types, cell, swl, inverse_active_set, *,
 
 def nbh_grades(b, inverse_active_set):
     """Neighborhood-mode grades: gamma_i = max_l |(invA @ b_i)_l|, one
-    (N, P) x (P, P) product for the whole configuration."""
+    (N, P) x (P, P) product for the whole configuration, in b's dtype (K5
+    gives a float64 b); the grades come out in the inverse's dtype."""
     g = torch.abs(_ieee_matmul(b, inverse_active_set.to(b.dtype).T))
-    return torch.max(g, dim=-1).values
+    return torch.max(g, dim=-1).values.to(inverse_active_set.dtype)
 
 
 def cfg_grade(b, inverse_active_set, n_atoms):
@@ -167,4 +169,4 @@ def cfg_grade(b, inverse_active_set, n_atoms):
     matvec, normalize by atom count (pair_mtp_extrapolation.cpp:363-377)."""
     bsum = torch.sum(b, dim=0)
     g = torch.max(torch.abs(_ieee_matmul(inverse_active_set.to(b.dtype), bsum)))
-    return g / max(n_atoms, 1)
+    return (g / max(n_atoms, 1)).to(inverse_active_set.dtype)

@@ -39,7 +39,15 @@
 // input and output at 3.35 TB/s. The kernels do more: the tail stage
 // rebuilds the basic stage's geometry, radial functions and monomials
 // rather than pass them through memory. No tensor cores and no TF32 anywhere:
-// every product and sum is an IEEE fp32 operation.
+// every product and sum is an IEEE fp32 operation, except on K5's path.
+//
+// K5 runs the General instantiations of its three stages in double (the
+// template parameter R): the grades multiply the candidate vector by the
+// inverse active set, whose conditioning turns fp32 rounding of the
+// per-pair sums into grade errors near 1e-2 of the largest grade. The
+// float inputs (displacements, coefficients, readout) are widened before
+// their first operation; site energies and pair forces are written as
+// floats, the basis members and radial rows as doubles.
 //
 // How the design meets the costs of the one-warp-per-atom kernel it
 // replaces (130 serial warp reductions per atom, int table loads and
@@ -276,19 +284,25 @@ __device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
   }
 }
 
-struct Geo {
-  float ux, uy, uz, inv_d, ksi, dh, env;
+// one pair's geometry in the arithmetic type R: float on the force path,
+// double on K5's (the displacements are widened before the first operation)
+template <class R>
+struct GeoT {
+  R ux, uy, uz, inv_d, ksi, dh, env;
 };
+using Geo = GeoT<float>;
 
-__device__ __forceinline__ Geo geometry(const Pair& p, float lo, float hi, float scaling) {
-  Geo g;
-  const float d2 = p.x * p.x + p.y * p.y + p.z * p.z;
-  const float d = sqrtf(d2);
-  g.inv_d = 1.f / d;
-  g.ux = p.x * g.inv_d;
-  g.uy = p.y * g.inv_d;
-  g.uz = p.z * g.inv_d;
-  g.ksi = (2.f * d - (lo + hi)) / (hi - lo);
+template <class R>
+__device__ __forceinline__ GeoT<R> geometry(const Pair& p, R lo, R hi, R scaling) {
+  GeoT<R> g;
+  const R x = p.x, y = p.y, z = p.z;
+  const R d2 = x * x + y * y + z * z;
+  const R d = sqrt(d2);
+  g.inv_d = R(1) / d;
+  g.ux = x * g.inv_d;
+  g.uy = y * g.inv_d;
+  g.uz = z * g.inv_d;
+  g.ksi = (R(2) * d - (lo + hi)) / (hi - lo);
   g.dh = d - hi;
   g.env = scaling * (g.dh * g.dh);
   return g;
@@ -329,25 +343,26 @@ __device__ __forceinline__ void radial_funcs(const float* crow, int RB, const Ge
 }
 
 // the same for a run-time MU, into thread-private shared columns (stride bd)
-__device__ __forceinline__ void radial_funcs_rt(const float* crow, int MU, int RB, const Geo& g,
-                                                float hi, float lo, float scaling, bool deriv,
-                                                float* sf, float* sfp, int bd) {
-  const float mult_c = 2.f / (hi - lo);
+template <class R>
+__device__ __forceinline__ void radial_funcs_rt(const float* crow, int MU, int RB,
+                                                const GeoT<R>& g, R hi, R lo, R scaling,
+                                                bool deriv, R* sf, R* sfp, int bd) {
+  const R mult_c = R(2) / (hi - lo);
   for (int mu = 0; mu < MU; ++mu) {
     const float* cm = crow + mu * RB;
-    float v0 = g.env, v1 = g.ksi * g.env;
-    float f = cm[0] * v0 + cm[1] * v1;
-    float g0 = 0.f, g1 = 0.f, fp = 0.f;
+    R v0 = g.env, v1 = g.ksi * g.env;
+    R f = cm[0] * v0 + cm[1] * v1;
+    R g0 = 0, g1 = 0, fp = 0;
     if (deriv) {
-      g0 = scaling * 2.f * g.dh;
-      g1 = scaling * (mult_c * (g.dh * g.dh) + 2.f * g.ksi * g.dh);
+      g0 = scaling * R(2) * g.dh;
+      g1 = scaling * (mult_c * (g.dh * g.dh) + R(2) * g.ksi * g.dh);
       fp = cm[0] * g0 + cm[1] * g1;
     }
     for (int r = 2; r < RB; ++r) {
-      const float v2 = 2.f * g.ksi * v1 - v0;
+      const R v2 = R(2) * g.ksi * v1 - v0;
       f += cm[r] * v2;
       if (deriv) {
-        const float g2 = 2.f * (mult_c * v1 + g.ksi * g1) - g0;
+        const R g2 = R(2) * (mult_c * v1 + g.ksi * g1) - g0;
         fp += cm[r] * g2;
         g0 = g1;
         g1 = g2;
@@ -362,20 +377,20 @@ __device__ __forceinline__ void radial_funcs_rt(const float* crow, int MU, int R
 
 // K5: rad[s2 = jt, mu, r] += (w cheb_r) Gmu[mu] for one pair, into
 // thread-private shared columns; gmu(mu) gives Gmu
-template <class Gmu>
-__device__ __forceinline__ void rad_rows(float* srad, int bd, int jt, int MU, int RB,
-                                         const Geo& g, float w, Gmu gmu) {
-  float* row = srad + (long long)jt * MU * RB * bd;
-  float v0 = g.env, v1 = g.ksi * g.env;
+template <class R, class Gmu>
+__device__ __forceinline__ void rad_rows(R* srad, int bd, int jt, int MU, int RB,
+                                         const GeoT<R>& g, R w, Gmu gmu) {
+  R* row = srad + (long long)jt * MU * RB * bd;
+  R v0 = g.env, v1 = g.ksi * g.env;
   for (int r = 0; r < RB; ++r) {
-    float c = v0;
+    R c = v0;
     if (r == 1) c = v1;
     if (r >= 2) {
-      c = 2.f * g.ksi * v1 - v0;
+      c = R(2) * g.ksi * v1 - v0;
       v0 = v1;
       v1 = c;
     }
-    const float wc = w * c;
+    const R wc = w * c;
     for (int mu = 0; mu < MU; ++mu) row[(mu * RB + r) * bd] += wc * gmu(mu);
   }
 }
@@ -391,24 +406,27 @@ __device__ __forceinline__ void basic_terms(float (&acc)[Sh::B], const float (&f
 }
 
 // G_t = sum_mu g f_mu, G'_t = sum_mu g f'_mu over the shells holding
-// monomial T; K5 also Gmu[mu] += g U
-template <class Sh, bool kGmu, int T, int MU_ = 0>
+// monomial T
+template <class Sh, int T, int MU_ = 0>
 __device__ __forceinline__ void tail_terms(const float (&g)[Sh::B], const float (&f)[Sh::MU],
-                                           const float (&fp)[Sh::MU], float U, float& G,
-                                           float& Gp, float (&gmu)[Sh::MU]) {
+                                           const float (&fp)[Sh::MU], float& G, float& Gp) {
   if constexpr (MU_ < Sh::MU) {
     if constexpr (mono_rank(T) <= Sh::r(MU_)) {
       const float gk = g[Sh::off(MU_) + T];
       G += gk * f[MU_];
       Gp += gk * fp[MU_];
-      if constexpr (kGmu) gmu[MU_] += gk * U;
     }
-    tail_terms<Sh, kGmu, T, MU_ + 1>(g, f, fp, U, G, Gp, gmu);
+    tail_terms<Sh, T, MU_ + 1>(g, f, fp, G, Gp);
   }
 }
 
-// floats of dynamic shared memory of one pair_kernel block: the radial
-// coefficients, the General term table, then thread-private columns
+// values of type R in the thread-private columns of one pair_kernel
+// thread; the block's dynamic shared memory holds the radial coefficients
+// (floats) and the General term table before them (`pair_head` floats)
+__host__ __device__ inline int pair_head(int S, int MU, int RB, int B, bool special) {
+  const int h = S * S * MU * RB + (special ? 0 : 4 * B);
+  return h + (h & 1);  // columns of doubles start 8-byte aligned
+}
 template <class Sh, int STAGE>
 __host__ __device__ inline int pair_cols(int S, int MU, int RB, int R, int B) {
   int c = 0;
@@ -421,16 +439,22 @@ __host__ __device__ inline int pair_cols(int S, int MU, int RB, int R, int B) {
   return c;
 }
 
-// The pair stages, one thread per atom (module comment).
-template <class Sh, int STAGE>
+// The pair stages, one thread per atom (module comment). R is the type of
+// every operation and sum: float, or double on K5's path (General only),
+// where the basic moments (B, N) and gamma are doubles too. The pair forces
+// are written as floats.
+template <class Sh, int STAGE, class R = float>
 __global__ void __launch_bounds__(kPairThreads)
 pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
             const int* __restrict__ itypes, const int* __restrict__ jtypes_t,
             const float* __restrict__ radial, const int* __restrict__ tab,
-            const float* __restrict__ gamma, float* __restrict__ out, float* __restrict__ rad,
-            int n, int j, int S, int MU, int RB, int R, int B, float lo, float hi,
-            float scaling) {
-  extern __shared__ float smem[];
+            const R* __restrict__ gamma,
+            std::conditional_t<STAGE == kStageBasic, R, float>* __restrict__ out,
+            R* __restrict__ rad, int n, int j, int S, int MU, int RB, int RK, int B, R lo,
+            R hi, R scaling) {
+  static_assert(std::is_same<R, float>::value || !Sh::kSpecial, "double runs General only");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x, bd = blockDim.x;
   const int ncoef = S * S * MU * RB;
   for (int q = tid; q < ncoef; q += bd) smem[q] = radial[q];
@@ -441,12 +465,13 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
   const int i = blockIdx.x * bd + tid;
   if (i >= n) return;  // no barrier below
 
-  float* col = smem + ncoef + nb + tid;  // this thread's columns, stride bd
+  // this thread's columns, stride bd
+  R* col = reinterpret_cast<R*>(smem + pair_head(S, MU, RB, B, Sh::kSpecial)) + tid;
   const long long jn = (long long)j * n;
   const float* crow0 = smem + (long long)itypes[i] * S * MU * RB;
-  float* srad = col;  // K5: S * MU * RB columns first
+  R* srad = col;  // K5: S * MU * RB columns first
   if constexpr (STAGE == kStageTailCand) {
-    for (int q = 0; q < S * MU * RB; ++q) srad[q * bd] = 0.f;
+    for (int q = 0; q < S * MU * RB; ++q) srad[q * bd] = 0;
     col += S * MU * RB * bd;
   }
   auto dead = [&](long long o) {
@@ -487,9 +512,6 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
         });
       } else {
         float P = 0.f, Q = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
-        float gmu[Sh::MU];
-#pragma unroll
-        for (int mu = 0; mu < Sh::MU; ++mu) gmu[mu] = 0.f;
         static_for<Sh::NT>([&](auto T) {
           constexpr int t = decltype(T)::value;
           constexpr int rank = mono_rank(t);
@@ -497,7 +519,7 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
           const float yz = py[ay] * pz[az];
           const float U = px[ax] * yz;
           float G = 0.f, Gp = 0.f;
-          tail_terms<Sh, STAGE == kStageTailCand, t>(acc, f, fp, U, G, Gp, gmu);
+          tail_terms<Sh, t>(acc, f, fp, G, Gp);
           P += Gp * U;
           if constexpr (rank > 0) Q += (float)rank * (G * U);
           if constexpr (ax > 0) Dx += G * ((float)ax * (px[ax - 1] * yz));
@@ -508,8 +530,6 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
         out[o] = (Pr * g.ux + Dx * g.inv_d) * p.w;
         out[jn + o] = (Pr * g.uy + Dy * g.inv_d) * p.w;
         out[2 * jn + o] = (Pr * g.uz + Dz * g.inv_d) * p.w;
-        if constexpr (STAGE == kStageTailCand)
-          rad_rows(srad, bd, p.jt, Sh::MU, RB, g, p.w, [&](int mu) { return gmu[mu]; });
       }
     });
     if constexpr (STAGE == kStageBasic) {
@@ -518,21 +538,21 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
     }
   } else {
     // General: per-thread values in shared columns, terms from sbasic
-    float* spx = col;
-    float* spy = spx + (R + 1) * bd;
-    float* spz = spy + (R + 1) * bd;
-    float* sacc = spz + (R + 1) * bd;  // basic moments, or gamma (tail)
-    float* sf = sacc + B * bd;
-    float* sfp = sf + MU * bd;
-    float* sgmu = sfp + MU * bd;
+    R* spx = col;
+    R* spy = spx + (RK + 1) * bd;
+    R* spz = spy + (RK + 1) * bd;
+    R* sacc = spz + (RK + 1) * bd;  // basic moments, or gamma (tail)
+    R* sf = sacc + B * bd;
+    R* sfp = sf + MU * bd;
+    R* sgmu = sfp + MU * bd;
     for (int k = 0; k < B; ++k)
-      sacc[k * bd] = STAGE != kStageBasic ? __ldg(gamma + (long long)k * n + i) : 0.f;
+      sacc[k * bd] = STAGE != kStageBasic ? __ldg(gamma + (long long)k * n + i) : R(0);
     for_live_slots(dispT, mask, jtypes_t, n, j, i, dead, [&](const Pair& p, long long o) {
-      const Geo g = geometry(p, lo, hi, scaling);
-      radial_funcs_rt(crow0 + p.jt * MU * RB, MU, RB, g, hi, lo, scaling, STAGE != kStageBasic,
-                      sf, sfp, bd);
-      float x = 1.f, y = 1.f, z = 1.f;
-      for (int r = 0; r <= R; ++r) {
+      const GeoT<R> g = geometry<R>(p, lo, hi, scaling);
+      radial_funcs_rt<R>(crow0 + p.jt * MU * RB, MU, RB, g, hi, lo, scaling,
+                         STAGE != kStageBasic, sf, sfp, bd);
+      R x = 1, y = 1, z = 1;
+      for (int r = 0; r <= RK; ++r) {
         spx[r * bd] = x;
         spy[r * bd] = y;
         spz[r * bd] = z;
@@ -544,38 +564,39 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
         for (int k = 0; k < B; ++k) {
           const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
           const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
-          sacc[k * bd] += (sf[mu * bd] * p.w) * (spx[ax * bd] * (spy[ay * bd] * spz[az * bd]));
+          sacc[k * bd] += (sf[mu * bd] * R(p.w)) * (spx[ax * bd] * (spy[ay * bd] * spz[az * bd]));
         }
       } else {
         // `_pair_force_terms`: T_a = u_a sum_k g W1 U + sum_k g W2 alpha_a
         // u^(alpha - e_a), W2 = f/d, W1 = f' - rank f/d
         if constexpr (STAGE == kStageTailCand)
-          for (int mu = 0; mu < MU; ++mu) sgmu[mu * bd] = 0.f;
-        float P = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
+          for (int mu = 0; mu < MU; ++mu) sgmu[mu * bd] = 0;
+        R P = 0, Dx = 0, Dy = 0, Dz = 0;
         for (int k = 0; k < B; ++k) {
           const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
           const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
           const int rank = ax + ay + az;
-          const float gk = sacc[k * bd];
-          const float W2 = sf[mu * bd] * g.inv_d;
-          const float fpm = sfp[mu * bd];
-          const float W1 = rank ? fpm - (float)rank * W2 : fpm;
-          const float qx = spx[ax * bd], qy = spy[ay * bd], qz = spz[az * bd];
-          const float U = qx * (qy * qz);
+          const R gk = sacc[k * bd];
+          const R W2 = sf[mu * bd] * g.inv_d;
+          const R fpm = sfp[mu * bd];
+          const R W1 = rank ? fpm - (R)rank * W2 : fpm;
+          const R qx = spx[ax * bd], qy = spy[ay * bd], qz = spz[az * bd];
+          const R U = qx * (qy * qz);
           P += (gk * W1) * U;
           if constexpr (STAGE == kStageTailCand) sgmu[mu * bd] += gk * U;
           if (rank) {
-            const float gw2 = gk * W2;
-            if (ax > 0) Dx += gw2 * ((float)ax * (spx[(ax - 1) * bd] * (qy * qz)));
-            if (ay > 0) Dy += gw2 * ((float)ay * (qx * (spy[(ay - 1) * bd] * qz)));
-            if (az > 0) Dz += gw2 * ((float)az * (qx * (qy * spz[(az - 1) * bd])));
+            const R gw2 = gk * W2;
+            if (ax > 0) Dx += gw2 * ((R)ax * (spx[(ax - 1) * bd] * (qy * qz)));
+            if (ay > 0) Dy += gw2 * ((R)ay * (qx * (spy[(ay - 1) * bd] * qz)));
+            if (az > 0) Dz += gw2 * ((R)az * (qx * (qy * spz[(az - 1) * bd])));
           }
         }
-        out[o] = (P * g.ux + Dx) * p.w;
-        out[jn + o] = (P * g.uy + Dy) * p.w;
-        out[2 * jn + o] = (P * g.uz + Dz) * p.w;
+        const R w = p.w;
+        out[o] = (float)((P * g.ux + Dx) * w);
+        out[jn + o] = (float)((P * g.uy + Dy) * w);
+        out[2 * jn + o] = (float)((P * g.uz + Dz) * w);
         if constexpr (STAGE == kStageTailCand)
-          rad_rows(srad, bd, p.jt, MU, RB, g, p.w, [&](int mu) { return sgmu[mu * bd]; });
+          rad_rows<R>(srad, bd, p.jt, MU, RB, g, w, [&](int mu) { return sgmu[mu * bd]; });
       }
     });
     if constexpr (STAGE == kStageBasic)
@@ -590,23 +611,24 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
 // sum over q in [q0, q1) of x[i0(q)] * y[i1(q)] * mult(q), entries (i0 | i1
 // << 16, mult), in table order; four products are loaded and formed at a
 // time so that their shared-memory reads overlap
-__device__ __forceinline__ float segment_sum(const int2* e, int q0, int q1, const float* x,
-                                             const float* y, int W, int a) {
-  float acc = 0.f;
+template <class R>
+__device__ __forceinline__ R segment_sum(const int2* e, int q0, int q1, const R* x, const R* y,
+                                         int W, int a) {
+  R acc = 0;
   int q = q0;
   for (; q + 4 <= q1; q += 4) {
-    float p[4];
+    R p[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int2 v = e[q + u];
-      p[u] = x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (float)v.y;
+      p[u] = x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (R)v.y;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc += p[u];
   }
   for (; q < q1; ++q) {
     const int2 v = e[q];
-    acc += x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (float)v.y;
+    acc += x[(v.x & 0xffff) * W + a] * y[((unsigned)v.x >> 16) * W + a] * (R)v.y;
   }
   return acc;
 }
@@ -614,27 +636,29 @@ __device__ __forceinline__ float segment_sum(const int2* e, int q0, int q1, cons
 // The product DAG of W atoms per block, one atom per lane; the warps split
 // each wave's targets, which the host orders longest segment first so that
 // round-robin shares them out evenly (module comment). mbg holds the basic
-// moments (B, N) on entry; K2 and K5 write gamma = dm[:B] over them.
-template <int MODE, bool kStaged>
+// moments (B, N) on entry; K2 and K5 write gamma = dm[:B] over them. R is
+// the type of m, dm and every operation: float, or double on K5's path.
+template <int MODE, bool kStaged, class R = float>
 __global__ void __launch_bounds__(kDagThreads)
-dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ per_atom,
+dag_kernel(R* mbg, const float* __restrict__ xi, const float* __restrict__ per_atom,
            const int* __restrict__ tab, const int* __restrict__ mapping,
-           float* __restrict__ site, float* __restrict__ bm, int n, int B, int M, int n_waves,
+           float* __restrict__ site, R* __restrict__ bm, int n, int B, int M, int n_waves,
            int n_scal, int W, int n_dag) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  R* smem = reinterpret_cast<R*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int i = blockIdx.x * W + lane;
   const bool on = lane < W && i < n;
   const int a = min(lane, W - 1);  // lanes >= W read a real column, write nothing
-  float* m = smem;                 // [M][W]
-  float* dm = smem + (long long)M * W;  // [max(M, nw)][W]
+  R* m = smem;                         // [M][W]
+  R* dm = smem + (long long)M * W;  // [max(M, nw)][W]
   // the DAG sections (n_dag ints from an even offset) in shared memory when
   // they fit beside m and dm (kStaged), so that table reads are shared
   // loads and wait on no cache
   const int base = tab[kFwdWave] & ~1;
   const int* dag = tab + base;
   if constexpr (kStaged) {
-    int2* st = reinterpret_cast<int2*>(smem + dag_floats(M, W));
+    int2* st = reinterpret_cast<int2*>(smem + dag_floats(M, W));  // 8-byte aligned
     const int2* src = reinterpret_cast<const int2*>(tab + base);
 #pragma unroll 4
     for (int q = threadIdx.x; q < n_dag / 2; q += blockDim.x) st[q] = __ldg(src + q);
@@ -642,8 +666,8 @@ dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ p
   }
   if (lane < W) {
 #pragma unroll 8
-    for (int k = warp; k < B; k += nw) m[k * W + a] = on ? __ldcg(mbg + (long long)k * n + i) : 0.f;
-    for (int k = B + warp; k < M; k += nw) m[k * W + a] = 0.f;
+    for (int k = warp; k < B; k += nw) m[k * W + a] = on ? __ldcg(mbg + (long long)k * n + i) : R(0);
+    for (int k = B + warp; k < M; k += nw) m[k * W + a] = 0;
   }
   __syncthreads();
 
@@ -653,7 +677,7 @@ dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ p
   const int2* fprod = reinterpret_cast<const int2*>(dag + (tab[kFwdProd] - base));
   for (int wv = 0; wv < n_waves; ++wv) {
     for (int t = fwave[wv] + warp; t < fwave[wv + 1]; t += nw) {
-      const float acc = segment_sum(fprod, fseg[t], fseg[t + 1], m, m, W, a);
+      const R acc = segment_sum<R>(fprod, fseg[t], fseg[t + 1], m, m, W, a);
       if (lane < W) m[ftgt[t] * W + a] += acc;
     }
     __syncthreads();
@@ -662,19 +686,19 @@ dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ p
   if constexpr (MODE == kSite || MODE == kCand) {
     // readout: site energy = esp + xi . m, each warp over its strided part
     // of the nodes, the parts summed in warp order (dm is not in use yet)
-    float e = 0.f;
+    R e = 0;
 #pragma unroll 8
     for (int k = warp; k < M; k += nw) {
-      const float x = __ldg(xi + k);
-      if (x != 0.f) e += x * m[k * W + a];
+      const R x = __ldg(xi + k);
+      if (x != R(0)) e += x * m[k * W + a];
     }
-    float* part = dm;  // [nw][W], within dm's max(M, nw) rows
+    R* part = dm;  // [nw][W], within dm's max(M, nw) rows
     if (lane < W) part[warp * W + a] = e;
     __syncthreads();
     if (warp == 0 && on) {
-      float sum = 0.f;
+      R sum = 0;
       for (int w = 0; w < nw; ++w) sum += part[w * W + a];
-      site[i] = sum + per_atom[i];
+      site[i] = (float)(sum + R(per_atom[i]));
     }
     if constexpr (MODE == kSite) return;
     // scalar basis members m[mapping] (the candidate vector's tail)
@@ -686,11 +710,11 @@ dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ p
 
   if constexpr (MODE == kForces || MODE == kCand) {
     // reverse DAG from dm = xi * de (K5: de = 1), grouped by written node
-    float de = 1.f;
+    R de = 1;
     if constexpr (MODE == kForces) de = (per_atom && on) ? per_atom[i] : 1.f;
     if (lane < W) {
 #pragma unroll 8
-      for (int k = warp; k < M; k += nw) dm[k * W + a] = __ldg(xi + k) * de;
+      for (int k = warp; k < M; k += nw) dm[k * W + a] = R(__ldg(xi + k)) * de;
     }
     __syncthreads();
     const int* rwave = dag + (tab[kRevWave] - base);
@@ -699,7 +723,7 @@ dag_kernel(float* mbg, const float* __restrict__ xi, const float* __restrict__ p
     const int2* rent = reinterpret_cast<const int2*>(dag + (tab[kRevEnt] - base));
     for (int wv = n_waves - 1; wv >= 0; --wv) {
       for (int t = rwave[wv] + warp; t < rwave[wv + 1]; t += nw) {
-        const float acc = segment_sum(rent, rseg[t], rseg[t + 1], dm, m, W, a);
+        const R acc = segment_sum<R>(rent, rseg[t], rseg[t + 1], dm, m, W, a);
         if (lane < W) dm[rnode[t] * W + a] += acc;
       }
       __syncthreads();
@@ -716,9 +740,9 @@ struct Args {
   const int *itypes, *jtypes_t;
   const float *radial, *xi, *per_atom;
   const int *tab, *mapping;
-  float *out, *scratch, *site, *bm, *rad;
+  float *out, *scratch;
   int n, j, S, MU, RB, R, B, M, n_waves, n_dag, n_scal, shape;
-  float lo, hi, scaling;
+  double lo, hi, scaling;  // float kernels take them as floats
   cudaStream_t stream;
 };
 
@@ -729,49 +753,50 @@ int set_smem(const void* kernel, size_t bytes) {
 }
 
 // block size and dynamic shared memory of a pair stage
-template <class Sh, int STAGE>
+template <class Sh, int STAGE, class R = float>
 void pair_config(const Args& a, int* bd, size_t* smem) {
   *bd = Sh::kSpecial ? kPairThreads : 32;
-  const int ncoef = a.S * a.S * a.MU * a.RB;
-  const int nb = Sh::kSpecial ? 0 : 4 * a.B;
-  *smem = sizeof(float) *
-          (ncoef + nb + (size_t)*bd * pair_cols<Sh, STAGE>(a.S, a.MU, a.RB, a.R, a.B));
+  *smem = sizeof(float) * pair_head(a.S, a.MU, a.RB, a.B, Sh::kSpecial) +
+          sizeof(R) * (size_t)*bd * pair_cols<Sh, STAGE>(a.S, a.MU, a.RB, a.R, a.B);
 }
 
 // atoms per DAG block: as many (up to one per lane) as keep two blocks per
 // SM; the block's dynamic shared memory (m and dm, and the DAG sections of
 // the table when they fit beside them)
+template <class R = float>
 void dag_config(const Args& a, int* W, size_t* smem, bool* staged) {
   constexpr size_t kBudget = 113 * 1024;
   *W = 32;
-  while (*W > 1 && (size_t)dag_floats(a.M, *W) * sizeof(float) > kBudget) *W >>= 1;
-  *smem = (size_t)dag_floats(a.M, *W) * sizeof(float);
+  while (*W > 1 && (size_t)dag_floats(a.M, *W) * sizeof(R) > kBudget) *W >>= 1;
+  *smem = (size_t)dag_floats(a.M, *W) * sizeof(R);
   *staged = *smem + (size_t)a.n_dag * sizeof(int) <= kBudget;
   if (*staged) *smem += (size_t)a.n_dag * sizeof(int);
 }
 
-template <class Sh, int STAGE>
-int launch_pair_as(const Args& a, const float* gamma, float* out, float* rad) {
+template <class Sh, int STAGE, class R = float>
+int launch_pair_as(const Args& a, const R* gamma,
+                   std::conditional_t<STAGE == kStageBasic, R, float>* out, R* rad) {
+  if (a.n == 0) return 0;
   int bd;
   size_t smem;
-  pair_config<Sh, STAGE>(a, &bd, &smem);
-  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE>, smem)) return e;
+  pair_config<Sh, STAGE, R>(a, &bd, &smem);
+  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE, R>, smem)) return e;
   const unsigned blocks = (unsigned)((a.n + bd - 1) / bd);
-  pair_kernel<Sh, STAGE><<<blocks, bd, smem, a.stream>>>(
+  pair_kernel<Sh, STAGE, R><<<blocks, bd, smem, a.stream>>>(
       a.dispT, a.mask, a.itypes, a.jtypes_t, a.radial, a.tab, gamma, out, rad, a.n, a.j, a.S,
-      a.MU, a.RB, a.R, a.B, a.lo, a.hi, a.scaling);
+      a.MU, a.RB, a.R, a.B, (R)a.lo, (R)a.hi, (R)a.scaling);
   return (int)cudaGetLastError();
 }
 
 // resident warps per SM of a pair stage (cudaOccupancy...), into *warps
-template <class Sh, int STAGE>
+template <class Sh, int STAGE, class R = float>
 int pair_warps_as(const Args& a, int* warps) {
   int bd, blocks = 0;
   size_t smem;
-  pair_config<Sh, STAGE>(a, &bd, &smem);
-  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE>, smem)) return e;
+  pair_config<Sh, STAGE, R>(a, &bd, &smem);
+  if (const int e = set_smem((const void*)pair_kernel<Sh, STAGE, R>, smem)) return e;
   const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, pair_kernel<Sh, STAGE>, bd, smem);
+      &blocks, pair_kernel<Sh, STAGE, R>, bd, smem);
   *warps = blocks * bd / 32;
   return e;
 }
@@ -804,31 +829,33 @@ int pair_warps(const Args& a, int* warps) {
 }
 
 // the DAG keeps two blocks of m and dm per SM: ask for the largest carveout
-template <int MODE, bool kStaged>
+template <int MODE, bool kStaged, class R = float>
 int dag_smem(size_t smem) {
-  const void* k = (const void*)dag_kernel<MODE, kStaged>;
+  const void* k = (const void*)dag_kernel<MODE, kStaged, R>;
   if (const int e = set_smem(k, smem)) return e;
   return (int)cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    cudaSharedmemCarveoutMaxShared);
 }
 
-template <int MODE>
-int launch_dag(const Args& a, float* site) {
+// mbg: the (B, N) basic moments in, gamma out (K2, K5); bm: K5's basis
+// members (N, n_scal)
+template <int MODE, class R = float>
+int launch_dag(const Args& a, R* mbg, float* site, R* bm = nullptr) {
   if (a.n == 0) return 0;
   int W;
   size_t smem;
   bool staged;
-  dag_config(a, &W, &smem, &staged);
+  dag_config<R>(a, &W, &smem, &staged);
   const unsigned blocks = (unsigned)((a.n + W - 1) / W);
   if (staged) {
-    if (const int e = dag_smem<MODE, true>(smem)) return e;
-    dag_kernel<MODE, true><<<blocks, kDagThreads, smem, a.stream>>>(
-        a.scratch, a.xi, a.per_atom, a.tab, a.mapping, site, a.bm, a.n, a.B, a.M, a.n_waves,
+    if (const int e = dag_smem<MODE, true, R>(smem)) return e;
+    dag_kernel<MODE, true, R><<<blocks, kDagThreads, smem, a.stream>>>(
+        mbg, a.xi, a.per_atom, a.tab, a.mapping, site, bm, a.n, a.B, a.M, a.n_waves,
         a.n_scal, W, a.n_dag);
   } else {
-    if (const int e = dag_smem<MODE, false>(smem)) return e;
-    dag_kernel<MODE, false><<<blocks, kDagThreads, smem, a.stream>>>(
-        a.scratch, a.xi, a.per_atom, a.tab, a.mapping, site, a.bm, a.n, a.B, a.M, a.n_waves,
+    if (const int e = dag_smem<MODE, false, R>(smem)) return e;
+    dag_kernel<MODE, false, R><<<blocks, kDagThreads, smem, a.stream>>>(
+        mbg, a.xi, a.per_atom, a.tab, a.mapping, site, bm, a.n, a.B, a.M, a.n_waves,
         a.n_scal, W, a.n_dag);
   }
   return (int)cudaGetLastError();
@@ -900,11 +927,11 @@ extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, i
   a.shape = shape;
   if (const int e = pair_warps<kStageBasic>(a, warps)) return e;
   if (const int e = pair_warps<kStageTail>(a, warps + 1)) return e;
-  if (const int e = pair_warps<kStageTailCand>(a, warps + 2)) return e;
+  if (const int e = pair_warps_as<General, kStageTailCand, double>(a, warps + 2)) return e;
   int W, blocks = 0;
   size_t smem;
   bool staged;
-  dag_config(a, &W, &smem, &staged);
+  dag_config<float>(a, &W, &smem, &staged);
   const void* k = staged ? (const void*)dag_kernel<kForces, true>
                          : (const void*)dag_kernel<kForces, false>;
   if (const int e = staged ? dag_smem<kForces, true>(smem) : dag_smem<kForces, false>(smem))
@@ -920,14 +947,14 @@ extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, i
 extern "C" int mtp_site_energies_mega(MTP_ARGS) {
   const Args a = MTP_PARAMS;
   if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
-  return launch_dag<kSite>(a, a.out);
+  return launch_dag<kSite>(a, a.scratch, a.out);
 }
 
 // K2: pair forces (3, J, N) = de_i * d(site_e_i)/d(dispT); de == NULL means 1
 extern "C" int mtp_pair_forces_mega(MTP_ARGS) {
   const Args a = MTP_PARAMS;
   if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
-  if (const int e = launch_dag<kForces>(a, nullptr)) return e;
+  if (const int e = launch_dag<kForces>(a, a.scratch, nullptr)) return e;
   return launch_pair<kStageTail>(a, a.scratch, a.out);
 }
 
@@ -943,21 +970,30 @@ extern "C" int mtp_basic_moments_vjp(MTP_ARGS) {
   return launch_pair<kStageTail>(a, a.per_atom, a.out);
 }
 
-// K5: site energies (N,), basis members (N, n_scal), radial rows
-// (N, S*MU*RB) and pair forces (3, J, N) of one grade step
+// K5: site energies (N,) and pair forces (3, J, N) as floats, basis
+// members (N, n_scal) and radial rows (N, S*MU*RB) as doubles, of one grade
+// step. Every stage runs in double (General only) from the float
+// displacements, coefficients and readout: the grades multiply the
+// candidate vector by the inverse active set, whose conditioning turns the
+// float path's rounding into grade errors near 1e-2 of the largest grade.
+// scratch is a (B, N) double buffer.
 extern "C" int mtp_candidates_mega(const void* dispT, const void* mask, const void* itypes,
                                    const void* jtypes_t, const void* radial, const void* xi,
                                    const void* esp, const void* tab, const void* mapping,
                                    void* site, void* bm, void* rad, void* pair, void* scratch,
                                    int n, int j, int S, int MU, int RB, int R, int B, int M,
-                                   int n_waves, int n_dag, int n_scal, int shape, float lo,
-                                   float hi, float scaling, void* stream) {
-  Args a = args(dispT, mask, itypes, jtypes_t, radial, xi, esp, tab, pair, scratch, n, j, S,
-                MU, RB, R, B, M, n_waves, n_dag, shape, lo, hi, scaling, stream);
+                                   int n_waves, int n_dag, int n_scal, double lo, double hi,
+                                   double scaling, void* stream) {
+  Args a = args(dispT, mask, itypes, jtypes_t, radial, xi, esp, tab, pair, nullptr, n, j, S,
+                MU, RB, R, B, M, n_waves, n_dag, 0, 0.f, 0.f, 0.f, stream);
   a.mapping = (const int*)mapping;
-  a.bm = (float*)bm;
   a.n_scal = n_scal;
-  if (const int e = launch_pair<kStageBasic>(a, nullptr, a.scratch)) return e;
-  if (const int e = launch_dag<kCand>(a, (float*)site)) return e;
-  return launch_pair<kStageTailCand>(a, a.scratch, a.out, (float*)rad);
+  a.lo = lo;
+  a.hi = hi;
+  a.scaling = scaling;
+  double* work = (double*)scratch;
+  if (const int e = launch_pair_as<General, kStageBasic, double>(a, nullptr, work, nullptr))
+    return e;
+  if (const int e = launch_dag<kCand, double>(a, work, (float*)site, (double*)bm)) return e;
+  return launch_pair_as<General, kStageTailCand, double>(a, work, a.out, (double*)rad);
 }

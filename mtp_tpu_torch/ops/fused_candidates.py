@@ -9,10 +9,19 @@ and the basis members before the reverse pass, and the radial rows
 ``rad[s2, mu, r] = sum_s [jt(s) = s2] w(s) cheb_r(s) Gmu[mu](s)`` with
 ``Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s)`` gathered in the force tail.
 
+K5 computes in float64 from float32 inputs (the JAX kernel runs in fp32):
+every stage runs its double instantiation, and the candidate vector's blocks
+come out as float64. The grades multiply b by the inverse active set, whose
+conditioning turns fp32 rounding of the per-pair sums into grade errors of
+about 1e-2 of the largest grade; double arithmetic brings them down to the
+rounding of the fp32 coefficients. Site energies and pair forces are
+rounded to float32, as the force path gives them.
+
 Layouts follow the JAX kernel (see :mod:`mtp_tpu_torch.ops.fused_moments`):
 inputs dispT (3, J, N), mask (J, N), itypes (N,), jtypes_t (J, N), radial
 (S, S, MU, RB), xi_full (M,), esp (N,); outputs site_e (N,), basis_members
-(N, n_scalar), rad (N, S*MU*RB) in (s2, mu, r) order, pair_tT (3, J, N).
+(N, n_scalar) float64, rad (N, S*MU*RB) float64 in (s2, mu, r) order, pair_tT
+(3, J, N).
 The candidate vector's itype block is placed by the caller
 (:func:`mtp_tpu_torch.al.grades.candidates_and_forces_window`).
 
@@ -36,14 +45,14 @@ from mtp_tpu_torch.ops.fused_moments import _check, scratch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
+_D = ctypes.c_double
 
 K5 = Kernel(
     name="candidates_mega",
     symbol="mtp_candidates_mega",
     source="mtp_tpu_torch/csrc/fused_moments.cu",
     replaces="mtp_tpu/ops/pallas_moments.py:589",
-    argtypes=(_P,) * 14 + (_I,) * 12 + (_F,) * 3 + (_P,),
+    argtypes=(_P,) * 14 + (_I,) * 11 + (_D,) * 3 + (_P,),
 )
 
 
@@ -102,16 +111,18 @@ def candidate_terms(sched, radial_coeffs, disp, mask, itypes, jtypes, xi_full, e
 
 
 def candidates_mega_plain(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, esp):
-    """Plain PyTorch twin of K5 on the kernel's layouts."""
+    """Plain PyTorch twin of K5 on the kernel's layouts, in float64 as the
+    kernel computes; site energies and pair forces in the inputs' dtype."""
     K5.plain_calls += 1
     n = dispT.shape[2]
+    f64 = torch.float64
     site, bm, rad, pair_t = candidate_terms(
-        tables.sched, radial_coeffs, dispT.permute(2, 1, 0), (mask > 0).T,
-        itypes.long(), jtypes_t.T.long(), xi_full, esp,
+        tables.sched, radial_coeffs.to(f64), dispT.permute(2, 1, 0).to(f64), (mask > 0).T,
+        itypes.long(), jtypes_t.T.long(), xi_full.to(f64), esp.to(f64),
     )
     return dict(
-        site_e=site, basis_members=bm, rad=rad.reshape(n, -1),
-        pair_tT=pair_t.permute(2, 1, 0).contiguous(),
+        site_e=site.to(dispT.dtype), basis_members=bm, rad=rad.reshape(n, -1),
+        pair_tT=pair_t.permute(2, 1, 0).to(dispT.dtype).contiguous(),
     )
 
 
@@ -127,14 +138,14 @@ def candidates_mega(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_ful
     _, j, n = dispT.shape
     n_scal = tables.mapping_i32.shape[0]
     n_rad = s.species_count * s.radial_funcs_count * s.radial_basis_size
-    f32 = dict(dtype=torch.float32, device=dispT.device)
+    f64 = dict(dtype=torch.float64, device=dispT.device)
     out = dict(
-        site_e=torch.empty((n,), **f32),
-        basis_members=torch.empty((n, n_scal), **f32),
-        rad=torch.empty((n, n_rad), **f32),
+        site_e=torch.empty((n,), dtype=torch.float32, device=dispT.device),
+        basis_members=torch.empty((n, n_scal), **f64),
+        rad=torch.empty((n, n_rad), **f64),
         pair_tT=torch.empty_like(dispT),
     )
-    work = scratch(tables, dispT)
+    work = scratch(tables, dispT, torch.float64)
     K5.launch(
         dispT.data_ptr(), mask.data_ptr(), itypes.data_ptr(), jtypes_t.data_ptr(),
         radial_coeffs.data_ptr(), xi_full.data_ptr(), esp.data_ptr(),
@@ -143,7 +154,6 @@ def candidates_mega(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_ful
         out["pair_tT"].data_ptr(), work.data_ptr(),
         n, j, s.species_count, s.radial_funcs_count, s.radial_basis_size,
         s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves, tables.n_dag, n_scal,
-        tables.shape,
         s.min_dist, s.max_dist, s.scaling,
         torch.cuda.current_stream(dispT.device).cuda_stream,
     )

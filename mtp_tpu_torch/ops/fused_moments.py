@@ -314,11 +314,11 @@ def _check(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_at
             raise ValueError("fused moments kernel inputs must share one device")
 
 
-def scratch(tables, dispT):
-    """The (B, N) fp32 buffer that carries the basic moments and their
-    gradient between a fused entry point's stage kernels."""
+def scratch(tables, dispT, dtype=torch.float32):
+    """The (B, N) buffer that carries the basic moments and their gradient
+    between a fused entry point's stage kernels (float64 for K5)."""
     n = dispT.shape[2]
-    return torch.empty((tables.sched.basic_count, n), dtype=torch.float32, device=dispT.device)
+    return torch.empty((tables.sched.basic_count, n), dtype=dtype, device=dispT.device)
 
 
 def _launch(kernel, tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_full, per_atom, out,

@@ -46,7 +46,7 @@ class NeighborList:
     overflow: torch.Tensor  # () bool: a capacity or the geometry was exceeded
     reference_positions: torch.Tensor  # positions at build time (skin check)
     reference_cell: torch.Tensor  # cell at build time
-    mirror: torch.Tensor  # (N*J,) int32 flat mirror permutation
+    mirror: torch.Tensor | None  # (N*J,) int32 flat mirror permutation; None with `centers`
 
 
 def mirror_permutation(idx):
@@ -111,6 +111,8 @@ def build_neighbor_list(
     grid: tuple,
     bin_capacity: int | None = None,
     real=None,
+    centers: int | None = None,
+    include_self_image: bool = False,
 ):
     """Periodic cell-list neighbor build.
 
@@ -126,11 +128,27 @@ def build_neighbor_list(
       real: optional (N,) bool; False rows (slab padding) go to a trash bin
         the stencil never reads, so they are neither centers nor neighbors
         (their rows hold only self-padding) and cannot overflow a real bin.
+      centers: build rows only for the first `centers` atoms (a
+        halo-extended set: own atoms first, ghosts after); every atom is
+        still a candidate neighbor. The list is then (centers, J) and not
+        symmetric, so it has no mirror (``mirror`` is None).
+      include_self_image: also keep an atom's own periodic images within the
+        cutoff (the JAX package's option). Candidates are minimum-imaged and
+        each bin is visited once, so an atom's own candidate always lies at
+        distance 0 and no image is ever added in the regime
+        :func:`check_cell` allows; the list is the default one.
 
     Returns :class:`NeighborList` with the flat mirror permutation; each row
     is sorted ascending, pads (the row's own index) included.
+
+    The geometry flag covers every axis: one of 3 or more bins flags bins
+    narrower than the cutoff; one of 1 or 2 bins (every bin visited once)
+    flags a cell narrower than 2 x cutoff, where the minimum image would
+    drop a pair's second image. The JAX package checks only the first kind
+    (``ops/neighbors.py:163-168``) and drops such pairs without a flag.
     """
     n = positions.shape[0]
+    nc = n if centers is None else int(centers)
     dev = positions.device
     gx, gy, gz = grid
     ncells = gx * gy * gz
@@ -140,13 +158,13 @@ def build_neighbor_list(
         bin_id = torch.where(real, bin_id, ncells)  # the trash bin
 
     # the grid is static but the cell is a run-time value: flag any binned
-    # dimension whose bin width has shrunk below the cutoff (relative
-    # epsilon: commensurate boxes have width/g == cutoff exactly)
+    # dimension whose bin width has shrunk below the cutoff, and any
+    # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
+    # bound); relative epsilon: commensurate boxes have width/g == cutoff
     widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
     geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for a, g in enumerate(grid):
-        if g >= 3:
-            geom_overflow = geom_overflow | (widths[a] / g < cutoff * (1.0 - 1e-6))
+        geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
 
     order = torch.argsort(bin_id, stable=True)
     sorted_bin = bin_id[order]
@@ -185,7 +203,10 @@ def build_neighbor_list(
         dc = [cpos[..., a] - positions[rows, a][:, None] for a in range(3)]
         dr = image_components(dc, cell, inv_cell)
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
-        keep = valid & (d2 <= cut2) & (safe != rows[:, None])
+        self_row = safe == rows[:, None]
+        keep = valid & (d2 <= cut2) & ~self_row
+        if include_self_image:
+            keep = keep | (valid & (d2 <= cut2) & self_row & (d2 > 1e-12))
         if real is not None:
             # candidates are real by construction (the stencil never reads
             # the trash bin): only the centers need the mask
@@ -199,8 +220,8 @@ def build_neighbor_list(
         idx = torch.where(key == big, rows[:, None], key)
         return idx.to(torch.int32), torch.max(torch.sum(keep, dim=1))
 
-    rows_all = torch.arange(n, device=dev)
-    parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, n, _ROW_BLOCK)]
+    rows_all = torch.arange(nc, device=dev)
+    parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, nc, _ROW_BLOCK)]
     idx = torch.cat([p[0] for p in parts], dim=0)
     max_cnt = torch.max(torch.stack([p[1] for p in parts]))
     nbr_overflow = max_cnt > max_neighbors
@@ -209,6 +230,35 @@ def build_neighbor_list(
     return NeighborList(
         idx=idx,
         overflow=cell_overflow | nbr_overflow | geom_overflow,
+        reference_positions=positions,
+        reference_cell=cell,
+        mirror=mirror_permutation(idx) if centers is None else None,
+    )
+
+
+def build_neighbor_list_bruteforce(positions, cell, cutoff: float, *, max_neighbors: int):
+    """All-pairs O(N^2) build (tests and small systems; port of the JAX
+    package's ``build_neighbor_list_bruteforce``). `cell` None: open
+    boundaries; otherwise minimum-image displacements, which needs every
+    perpendicular width >= 2 x cutoff (:func:`check_cell`). Rows sorted
+    ascending, pads (the row's own index) included, with the flat mirror
+    permutation, as :func:`build_neighbor_list` gives them."""
+    n = positions.shape[0]
+    dev = positions.device
+    dc = [positions[None, :, a] - positions[:, None, a] for a in range(3)]
+    if cell is not None:
+        dc = image_components(dc, cell, inverse_cell(cell))
+    d2 = dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2]
+    rows = torch.arange(n, device=dev)
+    keep = (d2 <= cutoff * cutoff) & (rows[None, :] != rows[:, None])
+    big = torch.iinfo(torch.int64).max
+    key = torch.sort(torch.where(keep, rows[None, :], big), dim=1).values[:, :max_neighbors]
+    if key.shape[1] < max_neighbors:
+        key = torch.cat([key, torch.full((n, max_neighbors - key.shape[1]), big, device=dev)], 1)
+    idx = torch.sort(torch.where(key == big, rows[:, None], key), dim=1).values.to(torch.int32)
+    return NeighborList(
+        idx=idx,
+        overflow=torch.max(torch.sum(keep, dim=1)) > max_neighbors,
         reference_positions=positions,
         reference_cell=cell,
         mirror=mirror_permutation(idx),

@@ -1,5 +1,5 @@
-"""Per-rank state and the halo primitives of multi-device MD (port of the
-parts of ``mtp_tpu/parallel/sharded_md.py`` that the window path uses).
+"""Per-rank state, the halo primitives and the block API of multi-device
+MD (port of ``mtp_tpu/parallel/sharded_md.py``).
 
 The JAX package holds global ``(nd*C, ...)`` arrays sharded over a mesh and
 runs the shards in one program. The port runs one process per rank, so a
@@ -17,6 +17,15 @@ parallel.comm.Comm` carries the messages:
 
 Every index computation stays on the device with static shapes (no host
 read), so a block queues behind the step loop on the card.
+
+The JAX package's XLA row-gather API (:func:`make_sharded_md_block`,
+:func:`compute_sharded_forces`, :func:`make_sharded_grades`) is kept, with
+`comm` in place of the mesh, on the port's one sharded engine,
+:class:`~mtp_tpu_torch.parallel.sharded_window.ShardedSimulation` (K1-K5 on
+the card). The JAX package needs that second path for boxes of fewer than 3
+bins across, which its window worklists cannot cover; the port's cell list
+visits every bin of such an axis, so its window engine takes every grid.
+Its TPU knobs ``backend`` and ``remat`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -253,3 +262,120 @@ def exchange(items, sel, comm, stage):
                   (torch.where(val_l.view(shape), own[sel_l], fill), -1)]
     got = comm.shifts(sends, stage["axis"])
     return [torch.cat([own, got[2 * i], got[2 * i + 1]]) for i, (own, _) in enumerate(items)]
+
+
+# ------------------------------------------------ the row-gather path's API
+
+
+def _engine(model, comm, *, capacity, max_neighbors, grid, skin, halo_capacity,
+            migrate_capacity=None, steps_per_rebuild=1, compute_virial=False):
+    """The ShardedSimulation behind the block API. `halo_capacity` as
+    ShardedSimulation takes it: a tuple per rank-grid axis
+    (:func:`~mtp_tpu_torch.parallel.domain.halo_capacities`), or None
+    (maximal)."""
+    from mtp_tpu_torch.parallel.sharded_window import ShardedSimulation
+
+    return ShardedSimulation(
+        model, comm, capacity=capacity, max_neighbors=max_neighbors, grid=tuple(grid),
+        skin=skin, steps_per_rebuild=steps_per_rebuild, halo_capacity=halo_capacity,
+        migrate_capacity=migrate_capacity, compute_virial=compute_virial,
+    )
+
+
+def _check_axis(state: ShardedState, slab_axis: int) -> None:
+    if state.axes[0] != slab_axis:
+        raise ValueError(f"the state was partitioned along cell vector {state.axes[0]}, "
+                         f"not slab_axis={slab_axis}")
+
+
+def make_sharded_md_block(
+    model, comm, *, capacity: int, max_neighbors: int, grid: tuple, skin: float = 0.5,
+    n_steps: int = 10, dt: float = 0.001, ensemble: str = "nve", temperature: float = 300.0,
+    tdamp: float = 0.1, halo_capacity=None, migrate_capacity=None, slab_axis: int = 0,
+):
+    """One multi-device MD block: migration, halo selection, the neighbor
+    rebuild, a force refresh and `n_steps` NVE or NHC-NVT steps.
+
+    Returns ``block(state) -> (state, flags)``: every rank calls it with
+    its :class:`ShardedState`; `flags` is a
+    :class:`~mtp_tpu_torch.parallel.sharded_window.ShardedRunFlags`, the
+    four flags of the JAX package's ``ShardFlags`` and the block's Verlet
+    staleness, which the JAX block does not check. The state's energy and
+    virial are those at the block's end (the virial tallied every step, as
+    the JAX block does). `slab_axis` must be the cell vector the state was
+    partitioned along; the engine is ``block.sim``."""
+    if ensemble not in ("nve", "nvt"):
+        raise ValueError(f"sharded block supports nve/nvt, got {ensemble}")
+    sim = _engine(model, comm, capacity=capacity, max_neighbors=max_neighbors, grid=grid,
+                  skin=skin, halo_capacity=halo_capacity, migrate_capacity=migrate_capacity,
+                  steps_per_rebuild=max(n_steps, 1), compute_virial=True)
+    from mtp_tpu_torch.parallel.sharded_window import ShardedRunFlags
+
+    def block(state: ShardedState):
+        _check_axis(state, slab_axis)
+        state, ctx, f4 = sim.rebuild(state)
+        state, stale = sim.steps(state, ctx, n_steps, ensemble=ensemble, dt=dt,
+                                 temperature=temperature, tdamp=tdamp, refresh=True)
+        return state, ShardedRunFlags(*f4, stale)
+
+    block.sim = sim
+    return block
+
+
+def compute_sharded_forces(model, comm, *, capacity: int, max_neighbors: int, grid: tuple,
+                           skin: float = 0.0, **kw):
+    """One sharded force, energy and virial evaluation: the block of
+    :func:`make_sharded_md_block` with no step. ``fn(state) -> (state,
+    flags)``; the state's forces, energy and virial are refreshed."""
+    return make_sharded_md_block(model, comm, capacity=capacity, max_neighbors=max_neighbors,
+                                 grid=grid, skin=skin, n_steps=0, dt=0.0, **kw)
+
+
+def _values_by_id(values, src: ShardedState, dst: ShardedState, comm):
+    """Per-slot `values` of `src`, moved to the slots of `dst` holding the
+    same atoms (by id), on every rank: zero on `dst`'s padding slots. A
+    collective. Migration re-homes atoms between ranks, so the slots of a
+    state before and after a rebuild differ."""
+    ids = comm.all_gather(src.ids).reshape(-1)
+    real = comm.all_gather(src.real).reshape(-1)
+    vals = comm.all_gather(values).reshape((-1,) + tuple(values.shape[1:]))
+    n = src.n_atoms
+    table = torch.zeros((n + 1,) + tuple(values.shape[1:]), dtype=values.dtype,
+                        device=values.device)
+    table[torch.where(real & (ids >= 0), ids, n)] = vals
+    mine = dst.real & (dst.ids >= 0)
+    out = table[torch.where(mine, dst.ids, n)]
+    return torch.where(mine.view((-1,) + (1,) * (values.ndim - 1)), out, 0)
+
+
+def make_sharded_grades(model, comm, *, capacity: int, max_neighbors: int, grid: tuple,
+                        halo_capacity=None, slab_axis: int = 0):
+    """Multi-device extrapolation grades: every call rebuilds (migration,
+    face shells at the cutoff, the neighbor list) and grades through
+    :meth:`~mtp_tpu_torch.parallel.sharded_window.ShardedSimulation.grade_eval`
+    (K1, K5, K3 on the card); the max over ranks in neighborhood mode, the
+    candidate vectors summed over ranks in configuration mode (the
+    reference's MPI_Allreduce MAX/SUM, pair_mtp_extrapolation.cpp:363-382).
+
+    Returns ``grades_fn(state) -> (max_grade, grades, flags)``: `grades`
+    (C,) per slot of the GIVEN state (carried back by id across the
+    rebuild's migration; zero on padding slots and in configuration mode),
+    `flags` one device bool, the OR of the rebuild's flags (the same on
+    every rank). The JAX package grades in XLA with a halo of the state as
+    it stands; the values are the same function."""
+    if model.inverse_active_set is None:
+        raise ValueError("model has no MVS selection state")
+    sim = _engine(model, comm, capacity=capacity, max_neighbors=max_neighbors, grid=grid,
+                  skin=0.0, halo_capacity=halo_capacity)
+
+    def grades_fn(state: ShardedState):
+        _check_axis(state, slab_axis)
+        moved, ctx, f4 = sim.rebuild(state)
+        out = sim.grade_eval(moved, ctx)
+        grades = out["grades"]
+        if not model.configuration_mode:
+            grades = _values_by_id(grades, moved, state, comm)
+        return out["max_grade"], grades, torch.stack(list(f4)).any()
+
+    grades_fn.sim = sim
+    return grades_fn

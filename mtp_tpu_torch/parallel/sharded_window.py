@@ -57,7 +57,11 @@ from mtp_tpu_torch.models.mtp import (
     mtp_energy_window,
     window_constants,
 )
-from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape
+from mtp_tpu_torch.ops.neighbors import (
+    build_sorted_neighbor_list,
+    grid_shape,
+    perpendicular_widths,
+)
 from mtp_tpu_torch.ops.window_disp import cell_product, inverse_cell
 from mtp_tpu_torch.parallel.comm import Comm
 from mtp_tpu_torch.parallel.sharded_md import (
@@ -103,7 +107,10 @@ class ShardedSimulation:
       comm: the rank grid and transport.
       capacity: slots per rank (C).
       max_neighbors: neighbor width J (a multiple of 8).
-      grid: the bin grid of the whole box (>= 3 bins per dimension).
+      grid: the bin grid of the whole box. An axis of 1 or 2 bins is
+        visited whole by the cell list (``ops.neighbors``), so long boxes
+        with a narrow cross-section (the JAX package sends them to its XLA
+        row-gather path) run here like any other.
       halo_capacity: a tuple, one shell capacity per grid axis (as
         :func:`~mtp_tpu_torch.parallel.domain.halo_capacities` gives them),
         or None: maximal, each stage's shell a subset of its source rows,
@@ -126,8 +133,6 @@ class ShardedSimulation:
 
     def __post_init__(self):
         self.sizes = self.comm.grid
-        if min(self.grid) < 3:
-            raise ValueError(f"the window path needs >= 3 bins per dimension, grid={self.grid}")
         self.w_cut = self.model.cutoff + self.skin
         self._reconfigure()
 
@@ -441,7 +446,7 @@ class ShardedSimulation:
         C = self.capacity
         if model.configuration_mode:
             g = cfg_grade(comm.sum(torch.sum(b, dim=0))[None], inv_a, state.n_atoms)
-            grades = torch.zeros(C, dtype=b.dtype, device=b.device)
+            grades = torch.zeros(C, dtype=inv_a.dtype, device=b.device)
         else:
             gs = torch.where(own_s, nbh_grades(b, inv_a), 0.0)
             grades = gs[swl.inv_order][:C]
@@ -483,13 +488,14 @@ class ShardedSimulation:
             # the neighbor flag covers the bin GEOMETRY too: under NPT the box
             # shrinks below the static grid's bins. Re-grid first; no J fixes
             # geometry.
+            widths = perpendicular_widths(cell)
+            if (widths < 2.0 * self.w_cut).any():
+                raise RuntimeError(
+                    f"cell widths {widths} shrank below 2 x (cutoff + skin) = "
+                    f"{2.0 * self.w_cut}: the minimum image cannot cover the box"
+                )
             ng = grid_shape(np.asarray(cell), self.w_cut)
             if ng != tuple(self.grid):
-                if min(ng) < 3:
-                    raise RuntimeError(
-                        f"cell shrank below 3 bins per dim (grid {ng}): the window path "
-                        "cannot cover it"
-                    )
                 self.grid = ng
                 self._reconfigure()
                 return f"grid -> {ng} (cell changed)"

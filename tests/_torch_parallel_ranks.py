@@ -302,3 +302,123 @@ def brick_run(rank, world, box, n_steps, level=16):
     return dict(positions=pos, forces=frc, energy=float(out.potential_energy), flags=flags,
                 launches=launches, halo=hc, rows=sim.NE, capacity=part.capacity,
                 ms_per_step=wall / n_steps * 1e3, transport=comm.transport)
+
+
+# ------------------------------- narrow boxes: the row-gather path's API
+
+
+def rowgather_cases(rank, world, box, boxy, states, inverse_active_set):
+    """The 4-rank cases of ``test_torch_parallel_rowgather.py`` on the JAX
+    tests' ``wide_system`` (fcc (16, 3, 3): 2 bins across y and z), each
+    from a JAX ShardedState carried over by ``sharded_state_from_jax``:
+    forces on 4 slabs and, on a 2-rank subgroup, on 2; NVE and NVT blocks
+    and grades along x and y on 4; the standalone monitor from a list width
+    that overflows, beside the window engine's grade."""
+    from types import SimpleNamespace
+
+    from mtp_tpu_torch.al.driver import ShardedExtrapolationMonitor
+    from mtp_tpu_torch.parallel.sharded_md import (
+        compute_sharded_forces,
+        make_sharded_grades,
+        make_sharded_md_block,
+    )
+    from mtp_tpu_torch.utils.convert import sharded_state_from_jax
+
+    def carried(name, comm, axes=(0,)):
+        return sharded_state_from_jax(SimpleNamespace(**states[name]), comm.rank, comm.world,
+                                      device="cpu", axes=axes)
+
+    pair = dist.new_group([0, 1])  # every rank takes part in making a group
+    comms = {4: Comm()}
+    if rank < 2:
+        comms[2] = Comm(group=pair)
+    model = level8()
+    cell = box["cell"]
+    res = {}
+    for nd, comm in comms.items():
+        ss = carried(f"forces{nd}", comm)
+        fn = compute_sharded_forces(model, comm, capacity=ss.positions.shape[0],
+                                    max_neighbors=48, grid=grid_shape(cell, model.cutoff))
+        out, flags = fn(ss)
+        res[f"forces{nd}"] = dict(
+            flags=bool(flags.any()), forces=out.gather(out.forces, comm),
+            energy=float(out.potential_energy), virial=out.virial.numpy(), grid=fn.sim.grid,
+        )
+    comm = comms[4]
+    for ens, kw in (("nve", {}), ("nvt", dict(temperature=300.0, tdamp=0.05))):
+        ss = carried("md", comm)
+        block = make_sharded_md_block(
+            model, comm, capacity=ss.positions.shape[0], max_neighbors=64,
+            grid=grid_shape(cell, model.cutoff + 0.6), skin=0.6, n_steps=10, dt=0.001,
+            ensemble=ens, **kw,
+        )
+        out, flags = block(ss)
+        pos, vel = out.gather_all([out.positions, out.velocities], comm)
+        res[ens] = dict(flags=bool(flags.any()), positions=pos, velocities=vel,
+                        energy=float(out.potential_energy), thermo=out.thermo.numpy())
+    m = level8(inverse_active_set)
+    for name, axis, b in (("grades_x", 0, box), ("grades_y", 1, boxy)):
+        ss = carried(name, comm, axes=(axis,))
+        fn = make_sharded_grades(m, comm, capacity=ss.positions.shape[0], max_neighbors=48,
+                                 grid=grid_shape(b["cell"], m.cutoff), slab_axis=axis)
+        g, grades, flags = fn(ss)
+        res[name] = dict(max_grade=float(g), grades=ss.gather(grades, comm), flags=bool(flags))
+    # the standalone engine from J = 16 (about 42 neighbors in the cutoff),
+    # and the window engine's grade pass at the same positions
+    ss = carried("grades_x", comm)
+    cap = ss.positions.shape[0]
+    mon = ShardedExtrapolationMonitor(m, comm, capacity=cap, grid=grid_shape(cell, m.cutoff),
+                                      max_neighbors=16, halo_capacity=(48,))
+    g = float(mon.evaluate(ss))
+    sim = ShardedSimulation(m, comm, capacity=cap, max_neighbors=64,
+                            grid=grid_shape(cell, m.cutoff + SKIN), skin=SKIN)
+    st, ctx, f4 = sim.rebuild(ss)
+    win = sim.grade_eval(st, ctx)
+    res["standalone"] = dict(
+        max_grade=g, grades=mon.nbh_grades, max_neighbors=mon.max_neighbors,
+        halo_capacity=mon.halo_capacity, window_flags=bool(torch.stack(list(f4)).any()),
+        window_max_grade=float(win["max_grade"]), window_grades=st.gather(win["grades"], comm),
+    )
+    return res
+
+
+def narrow_run(rank, world, box, blocks, n_steps, level=16):
+    """NVE blocks of the row-gather API (``make_sharded_md_block``) on
+    slabs along x, one NCCL rank per card in fp32 (on a gloo world: the
+    CPU, float64). Returns the gathered positions and forces (rank 0), the
+    energy, the flags, the launch counts and ms per step."""
+    import time
+
+    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.parallel.sharded_md import make_sharded_md_block
+
+    comm = Comm()
+    cuda = comm.transport == "nccl"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    dtype = torch.float32 if cuda else F64
+    model = MTPModel.from_data(make_mtp(level, species_count=1, seed=0), device=dev, dtype=dtype)
+    w_cut = model.cutoff + 0.6
+    part = partition_slabs(box["pos"], box["vel"], box["types"], box["masses"], box["cell"],
+                           world, cutoff=w_cut)
+    hc = halo_capacities(part, box["cell"], comm.grid, w_cut)
+    block = make_sharded_md_block(model, comm, capacity=part.capacity, max_neighbors=64,
+                                  grid=grid_shape(box["cell"], w_cut), skin=0.6,
+                                  n_steps=n_steps, halo_capacity=hc)
+    ss = ShardedState.from_partition(part, box["cell"], rank, dtype=dtype, device=dev)
+    block(ss)  # warm-up, discarded
+    reset_counts()
+    comm.barrier()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, flags = ss, []
+    for _ in range(blocks):
+        out, f = block(out)
+        flags.append(f.any())
+    flags = bool(torch.stack(flags).any())  # waits for the device
+    wall = time.perf_counter() - t0
+    launches = {k.name: (k.launches, k.plain_calls) for k in main_path_kernels()}
+    pos, frc = out.gather_all([out.positions, out.forces], comm, root=0)
+    return dict(positions=pos, forces=frc, energy=float(out.potential_energy), flags=flags,
+                launches=launches, halo=hc, grid=block.sim.grid, capacity=part.capacity,
+                ms_per_step=wall / (blocks * n_steps) * 1e3, transport=comm.transport)

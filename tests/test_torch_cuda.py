@@ -649,3 +649,102 @@ def test_four_cards_match_single_device(dev, tmp_path):
     de = abs(r0["energy"] - float(ref.potential_energy)) / len(pos)
     print(f"vs single device after 60 steps: max|dx|={dx:.3e} max|dF|={df:.3e} dE/atom={de:.3e}")
     assert dx < 1e-4 and df < 5e-4 and de < 1e-6
+
+
+def _long_box(dev):
+    """The long narrow box of ``chip_smoke.py`` phase 12: level 16, fcc
+    500 x 4 x 4 cells (32,000 atoms, 2,000 x 16 x 16 A), 300 K, fp32; its
+    grid at cutoff + skin is (357, 2, 2)."""
+    model = MTPModel.from_data(make_mtp(16, species_count=1, seed=0), device=dev,
+                               dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (500, 4, 4))
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    return model, st
+
+
+@pytest.mark.parametrize("ensemble", ["nve", "nvt"])
+def test_long_box_on_one_rank_matches_single_device(dev, nccl_world, ensemble):
+    """The long box on a world of one NCCL rank through the row-gather API
+    (``make_sharded_md_block``, 3 blocks of 10 steps from the fresh 300 K
+    lattice), against the single-device ``Simulation.run_async`` in three
+    calls of 10 (each call refreshes its forces on its new list, as each
+    block does): NVE bit for
+    bit; NVT to 1e-4 A and 5e-4 eV/A (its thermostat sums the kinetic energy
+    in slot order, the single-device step in bin-sorted order). A block
+    reads nothing back (``set_sync_debug_mode("error")``)."""
+    from mtp_tpu_torch.parallel.domain import partition_slabs
+    from mtp_tpu_torch.parallel.sharded_md import ShardedState, make_sharded_md_block
+
+    model, st = _long_box(dev)
+    cell = st.cell.cpu().numpy()
+    n = st.n_atoms
+    kw = dict(ensemble=ensemble, temperature=300.0, tdamp=0.1)
+    part = partition_slabs(*(getattr(st, a).cpu().numpy() for a in (
+        "positions", "velocities", "types", "masses")), cell, 1, cutoff=model.cutoff + 0.6,
+        capacity=n)
+    block = make_sharded_md_block(model, nccl_world, capacity=n, max_neighbors=64,
+                                  grid=grid_shape(cell, model.cutoff + 0.6), skin=0.6,
+                                  n_steps=10, **kw)
+    assert block.sim.grid == (357, 2, 2)
+    ss = ShardedState.from_partition(part, cell, 0, device=dev)
+    flags = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if k == 2 else 0)
+        try:
+            ss, f = block(ss)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        flags.append(f.any())
+    one = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
+                     compute_virial=False)
+    ref, aux = st, None
+    for _ in range(3):
+        ref, aux, g = one.run_async(ref, 10, aux=aux, **kw)
+        flags += [g.overflow, g.stale]
+    assert not bool(torch.stack(flags).any())
+    if ensemble == "nve":
+        for name in ("positions", "velocities", "forces", "potential_energy"):
+            assert torch.equal(getattr(ss, name), getattr(ref, name)), name
+    else:
+        assert float((ss.positions - ref.positions).abs().max()) < 1e-4
+        assert float((ss.forces - ref.forces).abs().max()) < 5e-4
+
+
+def test_four_cards_long_box_match_single_device(dev, tmp_path):
+    """The long box as 4 slabs along x, one NCCL rank per card, 6 blocks of
+    10 NVE steps of ``make_sharded_md_block`` through K1-K4, against the
+    single-device run from the same state on the first card: max|dx| <
+    1e-4 A, max|dF| < 5e-4 eV/A, dE/atom < 1e-6 eV. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (one NCCL rank per card)")
+    model, st = _long_box(dev)
+    box = {k: getattr(st, a).cpu().numpy() for k, a in (
+        ("pos", "positions"), ("vel", "velocities"), ("types", "types"), ("masses", "masses"),
+        ("cell", "cell"))}
+    world = World("_torch_parallel_ranks:narrow_run", 4, tmp_path, timeout=240.0,
+                  backend="nccl", box=box, blocks=6, n_steps=10)
+    try:
+        one = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
+                         compute_virial=False)
+        ref, flags = st, []
+        for _ in range(6):
+            ref, _, f = one.run_async(ref, 10)
+            flags.append(bool(f))
+        ranks = world.results()
+    finally:
+        world.kill()
+    assert not any(flags)
+    r0 = ranks[0]
+    print(f"4 cards, long box as 4 slabs: grid {r0['grid']} C={r0['capacity']} H={r0['halo']}; "
+          f"ms per step {[round(r['ms_per_step'], 3) for r in ranks]}")
+    for r in ranks:
+        assert r["transport"] == "nccl" and not r["flags"]
+        for name, (launched, plain) in r["launches"].items():
+            assert launched > 0 and plain == 0, name
+    dx = float(np.abs(r0["positions"] - ref.positions.cpu().numpy()).max())
+    df = float(np.abs(r0["forces"] - ref.forces.cpu().numpy()).max())
+    de = abs(r0["energy"] - float(ref.potential_energy)) / st.n_atoms
+    print(f"vs single device after 60 steps: max|dx|={dx:.3e} max|dF|={df:.3e} dE/atom={de:.3e}")
+    assert dx < 1e-4 and df < 5e-4 and de < 1e-6

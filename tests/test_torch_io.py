@@ -39,8 +39,9 @@ def _assert_same_data(a, b):
 
 def test_import_leaves_jax_out():
     """`import mtp_tpu_torch` (every module of the main path, of active
-    learning, of training and of multi-device MD, the host utilities and the
-    root chip_smoke.py) must not import jax. A
+    learning, of training and of multi-device MD, the host utilities, the
+    entry points, the examples and the root chip_smoke.py) must not import
+    jax. A
     subprocess: this test process already has jax loaded."""
     code = (
         "import sys\n"
@@ -55,6 +56,9 @@ def test_import_leaves_jax_out():
         "import mtp_tpu_torch.utils.accuracy_gate\n"
         "import mtp_tpu_torch.parallel.sharded_window, mtp_tpu_torch.parallel.observables\n"
         "import mtp_tpu_torch.parallel.domain, mtp_tpu_torch.parallel.comm\n"
+        "import mtp_tpu_torch.parallel.launch, mtp_tpu_torch.entry\n"
+        "import mtp_tpu_torch.examples.full_workflow, mtp_tpu_torch.examples.lammps_migration\n"
+        "import mtp_tpu_torch.examples.multichip_md, mtp_tpu_torch.examples.accuracy_validation\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mtp_tpu' or m.startswith('mtp_tpu.'))\n"
         "print(bad)\n"

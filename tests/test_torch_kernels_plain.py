@@ -684,6 +684,26 @@ def test_candidates_mega_matches_jax_kernel(al_case):
     assert np.abs(np.asarray(want["rad"])).max() > 1.0  # a non-trivial block
 
 
+def test_candidates_mega_computes_in_float64(al_case):
+    """K5 on fp32 inputs computes in float64, its plain twin as the kernel:
+    the candidate blocks are the float64 computation at the fp32 inputs'
+    values, bit for bit, and stay float64; site energies and pair forces
+    are that computation rounded to fp32."""
+    _, tm, dispT, mask, it, jt, esp = al_case
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+
+    f32 = cast([*_torch_args(tm, dispT, mask, it, jt), _t(esp)], torch.float32)
+    got = candidates_mega(*f32)
+    want = candidates_mega(*cast(f32, torch.float64))
+    for key in ("basis_members", "rad"):
+        assert got[key].dtype == torch.float64 and torch.equal(got[key], want[key]), key
+    for key in ("site_e", "pair_tT"):
+        assert got[key].dtype == torch.float32, key
+        assert torch.equal(got[key], want[key].float()), key
+
+
 def test_basic_moments_fused_and_vjp_match_jax_kernels(al_case):
     """K6 (forward) and K7 (its vjp, through the autograd backward) against
     the interpreted JAX kernels and jax.vjp, with a cotangent gamma."""

@@ -206,3 +206,83 @@ def test_sheared_cell_list_is_complete():
                   grid=grid_jax(cell, 5.0))
     got_jax = (np.asarray(ref.idx) != np.arange(len(pos))[:, None]).sum(1)
     assert not bool(ref.overflow) and got_jax.sum() < want.sum()
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "open"])
+def test_bruteforce_matches_jax(periodic):
+    """The all-pairs list: the JAX builder's neighbor sets row by row, the
+    same overflow flag, the cell list's rows, and a mirror that is an
+    involution pairing (i, j) with (j, i)."""
+    from mtp_tpu.ops.neighbors import build_neighbor_list_bruteforce as bf_jax
+    from mtp_tpu_torch.ops.neighbors import build_neighbor_list_bruteforce
+
+    pos, cell = _box(reps=(3, 3, 3), seed=7, tilt=0.1)
+    c = cell if periodic else None
+    nl = build_neighbor_list_bruteforce(torch.as_tensor(pos), None if c is None else
+                                        torch.as_tensor(c), 5.0, max_neighbors=64)
+    ref = bf_jax(jnp.asarray(pos), None if c is None else jnp.asarray(c), 5.0, max_neighbors=64)
+    assert not bool(nl.overflow) and not bool(ref.overflow)
+    assert nl.idx.dtype == torch.int32 and nl.idx.shape == (len(pos), 64)
+    assert _rows(nl.idx) == _rows(ref.idx)
+    idx = nl.idx.numpy()
+    assert np.all(np.diff(idx, axis=1) >= 0)
+    mir = nl.mirror.long().numpy()
+    np.testing.assert_array_equal(mir[mir], np.arange(idx.size))
+    src = np.repeat(np.arange(len(pos)), 64)
+    np.testing.assert_array_equal(idx.reshape(-1)[mir], src)
+    if periodic:
+        cl = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.0,
+                                 max_neighbors=64, grid=grid_shape(cell, 5.0))
+        np.testing.assert_array_equal(cl.idx.numpy(), idx)
+    tight = build_neighbor_list_bruteforce(torch.as_tensor(pos), torch.as_tensor(cell), 5.0,
+                                           max_neighbors=24)
+    assert bool(tight.overflow) == bool(bf_jax(jnp.asarray(pos), jnp.asarray(cell), 5.0,
+                                               max_neighbors=24).overflow) is True
+
+
+@pytest.mark.parametrize("option", ["centers", "include_self_image"])
+def test_list_options_match_jax(option):
+    """``centers``: rows for the first C atoms of a set with padding rows
+    (a halo-extended set), every real atom still a candidate; no mirror.
+    ``include_self_image``: the JAX option's rows (its own images never
+    enter a minimum-image list, so the default rows)."""
+    pos, cell = _box(reps=(6, 3, 3), seed=8)
+    n = len(pos)
+    real = np.ones(n, bool)
+    real[::7] = False
+    grid = grid_shape(cell, 5.0)
+    kw = dict(max_neighbors=64, grid=grid)
+    if option == "centers":
+        kw.update(centers=200)
+    else:
+        kw.update(include_self_image=True)
+    nl = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.0,
+                             real=torch.as_tensor(real), **kw)
+    ref = bnl_jax(jnp.asarray(pos), jnp.asarray(cell), 5.0, real=jnp.asarray(real), **kw)
+    assert not bool(nl.overflow) and not bool(ref.overflow)
+    rows = kw.get("centers", n)
+    assert nl.idx.shape == (rows, 64)
+    assert _rows(nl.idx) == _rows(ref.idx)
+    assert (nl.mirror is None) == (option == "centers")
+    full = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.0,
+                               real=torch.as_tensor(real), max_neighbors=64, grid=grid)
+    np.testing.assert_array_equal(nl.idx.numpy(), full.idx.numpy()[:rows])
+
+
+def test_narrow_axis_flags_the_minimum_image():
+    """A 2-bin axis whose cell shrinks below 2 x cutoff under a fixed grid:
+    a pair then lies within the cutoff through two images, and the minimum
+    image keeps one. The port flags it; the JAX builder checks only axes
+    of 3 bins or more and drops the second image without a flag."""
+    pos, cell = _box(reps=(6, 3, 3), seed=9)
+    grid = grid_shape(cell, 5.6)
+    assert grid[1:] == (2, 2)
+    s = np.diag([1.0, 0.9, 1.0])  # y: 12 A -> 10.8 A < 2 x 5.6
+    p, c = pos @ s, cell @ s
+    nl = build_neighbor_list(torch.as_tensor(p), torch.as_tensor(c), 5.6, max_neighbors=96,
+                             grid=grid)
+    ref = bnl_jax(jnp.asarray(p), jnp.asarray(c), 5.6, max_neighbors=96, grid=grid)
+    assert bool(nl.overflow) and not bool(ref.overflow)
+    ok = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.6, max_neighbors=96,
+                             grid=grid)
+    assert not bool(ok.overflow)
