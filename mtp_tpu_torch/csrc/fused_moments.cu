@@ -14,18 +14,15 @@
 //
 // Stages (each entry point runs the ones it needs, in this order):
 //   basic   pair_kernel<Sh, kStageBasic>: per-pair stage and basic moments
-//           m_k = sum_s w f_mu U_k -> (B, N). K6 alone; K4, K2, K5 into a
-//           (B, N) scratch buffer.
+//           m_k = sum_s w f_mu U_k -> (B, N). K6 alone; K4, K2 into a
+//           (B, N) scratch buffer; K5 into a double one (cand_kernel below).
 //   dag     dag_kernel<MODE>: the product DAG forward; K4 the readout
 //           esp + xi.m; K2 the reverse DAG from dm = de*xi, gamma = dm[:B]
 //           written over the scratch; K5 both, with de = 1, plus the scalar
 //           basis members m[mapping].
-//   tail    pair_kernel<Sh, kStageTail(Cand)>: per-pair stage with
-//           derivatives and the force tail from gamma (B, N) -> (3, J, N).
-//           K7 alone (gamma from the caller), K2 and K5 after the dag; K5
-//           also gathers Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s) and
-//           the radial-Jacobian rows rad[s2, mu, r] = sum_s [jt(s) = s2]
-//           w(s) cheb_r(s) Gmu[mu](s).
+//   tail    pair_kernel<Sh, kStageTail>: per-pair stage with derivatives
+//           and the force tail from gamma (B, N) -> (3, J, N). K7 alone
+//           (gamma from the caller), K2 after the dag.
 // The (B, N) intermediates (16.6 MB at 32k atoms, level 16) stay in the
 // 50 MB L2 between stages: the per-atom DAG state (m and dm, 2.6 KB at
 // level 16) and the per-thread pair state want different thread layouts,
@@ -41,13 +38,50 @@
 // rather than pass them through memory. No tensor cores and no TF32 anywhere:
 // every product and sum is an IEEE fp32 operation, except on K5's path.
 //
-// K5 runs the General instantiations of its three stages in double (the
-// template parameter R): the grades multiply the candidate vector by the
-// inverse active set, whose conditioning turns fp32 rounding of the
-// per-pair sums into grade errors near 1e-2 of the largest grade. The
-// float inputs (displacements, coefficients, readout) are widened before
-// their first operation; site energies and pair forces are written as
-// floats, the basis members and radial rows as doubles.
+// K5, the grade step, computes in double: the grades multiply the candidate
+// vector by the inverse active set, whose conditioning turns fp32 rounding
+// of the per-pair sums into grade errors near 1e-2 of the largest grade.
+// The float inputs (displacements, coefficients, readout) are widened
+// before their first operation; site energies and pair forces are written
+// as floats, the basis members and radial rows as doubles. For a
+// specialised shape (levels 8 and 16) with RB <= kCandRB it runs
+// cand_kernel<Sh, kStageBasic>, dag_kernel<kCand, staged, double> and
+// cand_kernel<Sh, kStageTailCand>, which also gathers Gmu[mu](s) =
+// sum_{k: mu_k = mu} gamma_k U_k(s) and the radial-Jacobian rows
+// rad[s2, mu, r] = sum_s [jt(s) = s2] w(s) cheb_r(s) Gmu[mu](s); every other
+// schedule runs pair_kernel<General, STAGE, double> around the same DAG. Its
+// bound on an H100 SXM is its float64 operations at 34 TFLOP/s: ~2.66 GFLOP
+// at 32k atoms and level 16, 0.0782 ms (chip_smoke.py `kernel_work`,
+// `bound`; its 94 MB of I/O would take 0.028 ms). What cand_kernel and the
+// DAG do about the costs of K5 on the General stages (3.54 ms at 32k):
+// - Registers. 130 double sums would take 260 registers, so the General
+//   stages keep every per-thread value in shared-memory columns (4
+//   resident warps per SM for the tail). A cand_kernel block is kSubs warps
+//   over the same 32 atoms (atom = lane), warp w holding the sums or gamma
+//   values of the terms of monomial group w in registers; each warp
+//   rebuilds the pair's geometry (1/d by rsqrt, no double division) and
+//   radial functions. Resident warps per SM at level 16: 8 (basic, 2
+//   groups), 12 (tail, 4 groups).
+// - Terms. As in the float stages, the terms and derivative monomials are
+//   unrolled at compile time from unit-vector powers in registers: no table
+//   is read in the inner loop (the General stages read (mu, ax, ay, az) and
+//   4-6 shared doubles per term).
+// - Radial rows. The Chebyshev values of a pair are computed once per warp
+//   and kept in registers for f_mu, f'_mu and the rows. The tail's warps
+//   walk the live slots in lockstep: each writes its group's partial T and
+//   Gmu of the pair to shared memory, and after one barrier warps 0-2 sum
+//   T's components in group order and write them, and warp w adds w Gmu[mu]
+//   cheb_r for mu = w (mod kSubs) to the rows in shared memory: RB
+//   read-modify-writes per pair, not S * MU * RB.
+// - The DAG. m and dm of 32 atoms in double would take 169 KB, so a block
+//   keeps 16 (W = 16, 2 blocks per SM); each warp runs two groups of 16
+//   lanes, each group on its own target of the wave, so every lane carries
+//   an atom (the General DAG left lanes 16-31 idle).
+// - Whole-line output. The radial rows leave shared memory, and the basis
+//   members a [W][n_scal | 1] staging in dm, as contiguous runs of rad (N,
+//   S*MU*RB) and bm (N, n_scal): a warp's stores cover whole lines.
+// Every sum of K5 keeps a fixed order (slots ascending; T and Gmu over the
+// groups in group order), no atomics: two launches agree bit for bit.
 //
 // How the design meets the costs of the one-warp-per-atom kernel it
 // replaces (130 serial warp reductions per atom, int table loads and
@@ -77,11 +111,11 @@
 // - The DAG runs with one atom per lane and the warps of a block splitting
 //   each wave's targets (the host orders them longest segment first), m and
 //   dm as [node][atom] rows in shared memory: every table entry is read at
-//   one warp-uniform address, from a copy of the DAG sections in shared
-//   memory when it fits beside m and dm (otherwise, from level 18 up,
-//   through `__ldg`), every
-//   m and dm access is conflict-free, and the (B, N) rows load and store as
-//   whole lines.
+//   one warp-uniform address (two, one per group of 16 lanes, where a block
+//   holds 16 atoms), from a copy of the DAG sections in shared memory when
+//   it fits beside m and dm (otherwise, from level 18 up, through `__ldg`),
+//   every m and dm access is conflict-free, and the (B, N) rows load and
+//   store as whole lines.
 // - Occupancy: the specialised pair stages take 254 registers, 8 warps per
 //   SM, which holds every warp of a 32k-atom launch (1,000, ~7.6 per SM) in
 //   one wave; more resident warps would need the moment sums out of
@@ -138,11 +172,19 @@ constexpr int kPairThreads = 64;  // specialised pair stages; General uses 32
 constexpr int kDagThreads = 512;  // 16 warps, one atom per lane
 constexpr int kDagWarps = kDagThreads / 32;
 
-// floats of a DAG block's m [M][W] and dm [max(M, kDagWarps)][W] (K4's and
-// K5's readout keeps its per-warp partial sums [kDagWarps][W] in dm's rows),
-// rounded up to even so that the staged table behind them is 8-byte aligned
-__host__ __device__ inline long long dag_floats(int M, int W) {
-  const long long f = (long long)(M + (M > kDagWarps ? M : kDagWarps)) * W;
+// A DAG block of W atoms runs 32 / W groups of W lanes in each warp: the
+// workers, each with its own targets.
+__host__ __device__ inline int dag_workers(int W) { return kDagWarps * (32 / W); }
+// row stride of K5's basis members staged in dm, [W][stride]: odd, so that
+// both the gather from m and the whole-line store read without conflicts
+__host__ __device__ inline int bm_stride(int n_scal) { return n_scal | 1; }
+// values of a DAG block's m [M][W] and dm [max(M, workers + extra)][W]
+// (K4's and K5's readout keeps each worker's partial sums [workers][W] in
+// dm's rows, K5's basis members the `extra` rows after them), rounded up to
+// even so that the staged table behind them is 8-byte aligned
+__host__ __device__ inline long long dag_floats(int M, int W, int extra) {
+  const int rows = dag_workers(W) + extra;
+  const long long f = (long long)(M + (M > rows ? M : rows)) * W;
   return f + (f & 1);
 }
 
@@ -279,6 +321,58 @@ __device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
     Pair nxt = {};
     if (o2 >= 0) nxt = load_pair(dispT, mask, jtypes_t, jn, o2);
     body(cur, o);
+    cur = nxt;
+    o = o2;
+  }
+}
+
+// for_live_slots in lockstep across the warps of a block whose warps all
+// hold the same atoms (atom = lane): every iteration runs body(pair, o, buf)
+// on the lanes that still have a live slot, one __syncthreads(), then
+// after(pair, o, buf) on them; buf alternates 0, 1. All warps see the same
+// live slots, so they leave the loop together. Atoms past n (`on` false)
+// have no slot but keep to the barriers. (The slot scan is for_live_slots'
+// own, repeated rather than shared: the float stages' code, and so their
+// rounding, stays as it was.)
+template <class Dead, class Body, class After>
+__device__ __forceinline__ void for_live_slots_lockstep(const float* __restrict__ dispT,
+                                                        const float* __restrict__ mask,
+                                                        const int* __restrict__ jtypes_t, int n,
+                                                        int j, int i, bool on, Dead dead,
+                                                        Body body, After after) {
+  const long long jn = (long long)j * n;
+  int base = -64;
+  uint64_t bits = 0;
+  auto next = [&]() -> long long {
+    while (bits == 0) {
+      base += 64;
+      if (base >= j) return -1;
+      const int cnt = min(64, j - base);
+#pragma unroll 16
+      for (int q = 0; q < cnt; ++q) {
+        const long long o = (long long)(base + q) * n + i;
+        if (__ldg(mask + o) > 0.f)
+          bits |= 1ull << q;
+        else
+          dead(o);
+      }
+    }
+    const int q = __ffsll((long long)bits) - 1;
+    bits &= bits - 1;
+    return (long long)(base + q) * n + i;
+  };
+  long long o = on ? next() : -1;
+  Pair cur = {};
+  if (o >= 0) cur = load_pair(dispT, mask, jtypes_t, jn, o);
+  for (int buf = 0;; buf ^= 1) {
+    const bool have = o >= 0;
+    if (!__any_sync(0xffffffffu, have)) break;
+    const long long o2 = have ? next() : -1;
+    Pair nxt = {};
+    if (o2 >= 0) nxt = load_pair(dispT, mask, jtypes_t, jn, o2);
+    if (have) body(cur, o, buf);
+    __syncthreads();
+    if (have) after(cur, o, buf);
     cur = nxt;
     o = o2;
   }
@@ -440,9 +534,9 @@ __host__ __device__ inline int pair_cols(int S, int MU, int RB, int R, int B) {
 }
 
 // The pair stages, one thread per atom (module comment). R is the type of
-// every operation and sum: float, or double on K5's path (General only),
-// where the basic moments (B, N) and gamma are doubles too. The pair forces
-// are written as floats.
+// every operation and sum: float, or double on K5's path for the General
+// shape (specialised shapes run K5 on cand_kernel), where the basic moments
+// (B, N) and gamma are doubles too. The pair forces are written as floats.
 template <class Sh, int STAGE, class R = float>
 __global__ void __launch_bounds__(kPairThreads)
 pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
@@ -452,7 +546,8 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
             std::conditional_t<STAGE == kStageBasic, R, float>* __restrict__ out,
             R* __restrict__ rad, int n, int j, int S, int MU, int RB, int RK, int B, R lo,
             R hi, R scaling) {
-  static_assert(std::is_same<R, float>::value || !Sh::kSpecial, "double runs General only");
+  static_assert(std::is_same<R, float>::value || !Sh::kSpecial,
+                "specialised shapes run K5's double stages on cand_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x, bd = blockDim.x;
@@ -608,6 +703,360 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
   }
 }
 
+// ---- K5's specialised stages in double (cand_kernel). A thread cannot
+// keep 130 double sums (260 registers), so a block is kSubs warps over the
+// same 32 atoms (atom = lane in every warp) and warp w takes the terms of
+// monomial group w: its share of the basic moments, or of gamma, stays in
+// registers. The groups are cut at compile time (make_split): monomials in
+// their order, each to the group with the least work so far.
+
+// warps (term groups) of a cand_kernel block, and the blocks per SM its
+// register budget is set for. Measured at level 16 (the module comment):
+// the basic stage, 2 groups of ~65 sums in 254 registers, 8 warps per SM;
+// the tail, 4 groups of ~33 gamma values in 168 registers, 12 warps per SM.
+// More groups cost more than the occupancy they buy: every warp rebuilds
+// the pair's geometry and radial functions.
+template <int STAGE>
+constexpr int kSubs = STAGE == kStageBasic ? 2 : 4;
+template <int STAGE>
+constexpr int kCandBlocks = STAGE == kStageBasic ? 4 : 3;
+constexpr int kCandRB = 8;  // Chebyshev functions kept in registers
+constexpr int kLd = 33;     // row stride of the radial rows (odd: no conflicts)
+
+template <class Sh>
+__host__ __device__ constexpr int n_shells(int t) {
+  int c = 0;
+  for (int mu = 0; mu < Sh::MU; ++mu) c += mono_rank(t) <= Sh::r(mu);
+  return c;
+}
+
+template <class Sh, int STAGE>
+struct SplitTable {
+  int sub[Sh::NT];          // group of monomial t
+  int loc[Sh::B];           // index of canonical term c among its group's terms
+  int count[kSubs<STAGE>];  // terms of each group
+};
+
+// work per monomial: the basic stage builds U_t and adds one FMA per term;
+// the tail builds U_t and its derivative monomials, adds P, Q and D_a, and
+// three FMAs per term (G_t, G'_t, Gmu)
+template <class Sh, int STAGE>
+constexpr SplitTable<Sh, STAGE> make_split() {
+  SplitTable<Sh, STAGE> x{};
+  const int cm = STAGE == kStageBasic ? 2 : 9, ct = STAGE == kStageBasic ? 1 : 3;
+  int load[kSubs<STAGE>] = {};
+  for (int t = 0; t < Sh::NT; ++t) {
+    int s = 0;
+    for (int q = 1; q < kSubs<STAGE>; ++q)
+      if (load[q] < load[s]) s = q;
+    x.sub[t] = s;
+    load[s] += cm + ct * n_shells<Sh>(t);
+  }
+  for (int mu = 0; mu < Sh::MU; ++mu)
+    for (int t = 0; t < n_mono(Sh::r(mu)); ++t) x.loc[Sh::off(mu) + t] = x.count[x.sub[t]]++;
+  return x;
+}
+// the cut as compile-time scalars (each evaluates make_split once)
+template <class Sh, int STAGE, int T>
+constexpr int kSubOf = make_split<Sh, STAGE>().sub[T];  // group of monomial T
+template <class Sh, int STAGE, int C>
+constexpr int kLocOf = make_split<Sh, STAGE>().loc[C];  // slot of term C in its group
+template <class Sh, int STAGE>
+constexpr int group_max() {
+  const SplitTable<Sh, STAGE> x = make_split<Sh, STAGE>();
+  int m = 1;
+  for (int w = 0; w < kSubs<STAGE>; ++w) m = x.count[w] > m ? x.count[w] : m;
+  return m;
+}
+template <class Sh, int STAGE, int W, int MU_>
+constexpr bool group_has_mu() {
+  const SplitTable<Sh, STAGE> x = make_split<Sh, STAGE>();
+  for (int t = 0; t < n_mono(Sh::r(MU_)); ++t)
+    if (x.sub[t] == W) return true;
+  return false;
+}
+template <class Sh, int STAGE>
+constexpr int kGroupMax = group_max<Sh, STAGE>();  // most terms of one group
+template <class Sh, int STAGE, int W, int MU_>
+constexpr bool kHasMu = group_has_mu<Sh, STAGE, W, MU_>();  // group W uses f_MU_
+
+// f(mu, t, c) for every canonical term c = off(mu) + t of group W, mu-major
+template <class Sh, int STAGE, int W, class F>
+__device__ __forceinline__ void for_group_terms(F f) {
+  static_for<Sh::MU>([&](auto M) {
+    constexpr int mu = decltype(M)::value;
+    static_for<n_mono(Sh::r(mu))>([&](auto T) {
+      constexpr int t = decltype(T)::value;
+      if constexpr (kSubOf<Sh, STAGE, t> == W)
+        f(M, T, std::integral_constant<int, Sh::off(mu) + t>{});
+    });
+  });
+}
+
+// cand_kernel's radial constants: hi, lo + hi, 1 / (hi - lo), its double,
+// and the envelope's scaling
+struct Radial {
+  double hi, lh, inv_span, mult_c, scaling;
+};
+
+// One pair's geometry in double for cand_kernel: 1/d by rsqrt, d = d2/d and
+// the span by its reciprocal (a double division or square root costs ~20
+// operations, and every warp of the block rebuilds the geometry)
+__device__ __forceinline__ GeoT<double> cand_geometry(const Pair& p, const Radial& rc) {
+  GeoT<double> g;
+  const double x = p.x, y = p.y, z = p.z;
+  const double d2 = x * x + y * y + z * z;
+  g.inv_d = rsqrt(d2);
+  const double d = d2 * g.inv_d;
+  g.ux = x * g.inv_d;
+  g.uy = y * g.inv_d;
+  g.uz = z * g.inv_d;
+  g.ksi = (2.0 * d - rc.lh) * rc.inv_span;
+  g.dh = d - rc.hi;
+  g.env = rc.scaling * (g.dh * g.dh);
+  return g;
+}
+
+// One pair's Chebyshev values cheb[r] (r < RB <= kCandRB) in double, and
+// f_mu (and f'_mu) of the radial functions group W uses, from the float
+// coefficient row crow (MU, RB): the recursion once
+template <class Sh, int STAGE, int W, bool kDeriv>
+__device__ __forceinline__ void cand_radial(const float* crow, int RB, const GeoT<double>& g,
+                                            const Radial& rc, double (&cheb)[kCandRB],
+                                            double (&f)[Sh::MU], double (&fp)[Sh::MU]) {
+  const double mult_c = rc.mult_c;
+  double v0 = g.env, v1 = g.ksi * g.env, g0 = 0, g1 = 0;
+  if constexpr (kDeriv) {
+    g0 = rc.scaling * 2.0 * g.dh;
+    g1 = rc.scaling * (mult_c * (g.dh * g.dh) + 2.0 * g.ksi * g.dh);
+  }
+#pragma unroll
+  for (int mu = 0; mu < Sh::MU; ++mu) f[mu] = fp[mu] = 0;
+#pragma unroll
+  for (int r = 0; r < kCandRB; ++r) {
+    if (r >= RB) break;
+    double v = v0, gd = g0;
+    if (r == 1) {
+      v = v1;
+      gd = g1;
+    } else if (r >= 2) {
+      v = 2.0 * g.ksi * v1 - v0;
+      if constexpr (kDeriv) gd = 2.0 * (mult_c * v1 + g.ksi * g1) - g0;
+      v0 = v1;
+      v1 = v;
+      g0 = g1;
+      g1 = gd;
+    }
+    cheb[r] = v;
+    static_for<Sh::MU>([&](auto M) {
+      constexpr int mu = decltype(M)::value;
+      if constexpr (kHasMu<Sh, STAGE, W, mu>) {
+        const double c = crow[mu * RB + r];
+        f[mu] += c * v;
+        if constexpr (kDeriv) fp[mu] += c * gd;
+      }
+    });
+  }
+}
+
+// powers u_a^e, e <= RMAX, of one pair's unit vector
+template <int RMAX>
+struct Powers {
+  double x[RMAX + 1], y[RMAX + 1], z[RMAX + 1];
+  __device__ __forceinline__ Powers(const GeoT<double>& g) {
+    x[0] = y[0] = z[0] = 1.0;
+#pragma unroll
+    for (int r = 1; r <= RMAX; ++r) {
+      x[r] = x[r - 1] * g.ux;
+      y[r] = y[r - 1] * g.uy;
+      z[r] = z[r - 1] * g.uz;
+    }
+  }
+};
+
+// Group W's work on one pair. Basic stage: acc[loc(c)] += w f_mu U_t.
+// Tail: the group's share of T = w (u (P - Q/d) + D/d) and of Gmu[mu],
+// written to its row of the block's partial sums (stride 32: [3 + MU][32]).
+template <class Sh, int STAGE, int W>
+__device__ __forceinline__ void cand_group_pair(const Pair& p, const float* crow, int RB,
+                                                const Radial& rc,
+                                                double (&acc)[kGroupMax<Sh, STAGE>],
+                                                double (&cheb)[kCandRB], double* part) {
+  constexpr int MU = Sh::MU;
+  constexpr bool kTail = STAGE != kStageBasic;
+  const GeoT<double> g = cand_geometry(p, rc);
+  double f[MU], fp[MU];
+  cand_radial<Sh, STAGE, W, kTail>(crow, RB, g, rc, cheb, f, fp);
+  const Powers<Sh::RMAX> pw(g);
+  if constexpr (!kTail) {
+    const double w = p.w;
+    for_group_terms<Sh, STAGE, W>([&](auto M, auto T, auto C) {
+      constexpr int mu = decltype(M)::value, t = decltype(T)::value;
+      constexpr int ax = mono_ax(t), ay = mono_ay(t), az = mono_rank(t) - ax - ay;
+      constexpr int l = kLocOf<Sh, STAGE, decltype(C)::value>;
+      acc[l] += (f[mu] * w) * (pw.x[ax] * (pw.y[ay] * pw.z[az]));
+    });
+  } else {
+    double P = 0, Q = 0, Dx = 0, Dy = 0, Dz = 0, gmu[MU];
+#pragma unroll
+    for (int mu = 0; mu < MU; ++mu) gmu[mu] = 0;
+    static_for<Sh::NT>([&](auto T) {
+      constexpr int t = decltype(T)::value;
+      if constexpr (kSubOf<Sh, STAGE, t> == W) {
+        constexpr int rank = mono_rank(t);
+        constexpr int ax = mono_ax(t), ay = mono_ay(t), az = rank - ax - ay;
+        const double yz = pw.y[ay] * pw.z[az];
+        const double U = pw.x[ax] * yz;
+        double G = 0, Gp = 0;
+        static_for<MU>([&](auto M) {
+          constexpr int mu = decltype(M)::value;
+          if constexpr (rank <= Sh::r(mu)) {
+            constexpr int l = kLocOf<Sh, STAGE, Sh::off(mu) + t>;
+            G += acc[l] * f[mu];
+            Gp += acc[l] * fp[mu];
+            gmu[mu] += acc[l] * U;
+          }
+        });
+        P += Gp * U;
+        if constexpr (rank > 0) Q += (double)rank * (G * U);
+        if constexpr (ax > 0) Dx += G * ((double)ax * (pw.x[ax - 1] * yz));
+        if constexpr (ay > 0) Dy += G * ((double)ay * (pw.x[ax] * (pw.y[ay - 1] * pw.z[az])));
+        if constexpr (az > 0) Dz += G * ((double)az * (pw.x[ax] * (pw.y[ay] * pw.z[az - 1])));
+      }
+    });
+    const double Pr = P - Q * g.inv_d, w = p.w;
+    part[0] = (Pr * g.ux + Dx * g.inv_d) * w;
+    part[32] = (Pr * g.uy + Dy * g.inv_d) * w;
+    part[64] = (Pr * g.uz + Dz * g.inv_d) * w;
+#pragma unroll
+    for (int mu = 0; mu < MU; ++mu) part[(3 + mu) * 32] = gmu[mu];
+  }
+}
+
+// shared memory of a cand_kernel block: the radial coefficients (floats,
+// rounded up to even), then for the tail the partial sums [2][kSubs][3 +
+// MU][32] and the radial rows [S * MU * RB][kLd] as doubles
+__host__ __device__ inline int cand_head(int S, int MU, int RB) {
+  const int h = S * S * MU * RB;
+  return h + (h & 1);
+}
+__host__ __device__ inline int cand_doubles(int STAGE, int S, int MU, int RB) {
+  return STAGE == kStageBasic ? 0 : 2 * kSubs<kStageTailCand> * (3 + MU) * 32 + S * MU * RB * kLd;
+}
+
+// K5's basic stage and tail with the radial rows for a specialised shape,
+// in double: a block of kSubs warps over 32 atoms (the comment above).
+// Basic: warp w sums its group's moments over the atom's live slots and
+// writes them as (B, N) rows. Tail: the warps walk the live slots in
+// lockstep; each writes its group's partial T and Gmu of the pair, then
+// after one barrier warp a < 3 sums component a of T over the groups in
+// group order and writes it, and warp w sums Gmu[mu] for mu = w (mod
+// kSubs) and adds w Gmu[mu] cheb_r to the radial rows in shared memory,
+// written at the end as whole lines of rad (N, S*MU*RB).
+template <class Sh, int STAGE>
+__global__ void __launch_bounds__(32 * kSubs<STAGE>, kCandBlocks<STAGE>)
+cand_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
+            const int* __restrict__ itypes, const int* __restrict__ jtypes_t,
+            const float* __restrict__ radial, const int* __restrict__ tab,
+            const double* __restrict__ gamma,
+            std::conditional_t<STAGE == kStageBasic, double, float>* __restrict__ out,
+            double* __restrict__ rad, int n, int j, int S, int RB, double lo, double hi,
+            double scaling) {
+  constexpr int MU = Sh::MU, SUBS = kSubs<STAGE>;
+  static_assert(STAGE == kStageBasic || SUBS >= 3, "the tail's warps 0-2 sum T's components");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* scoef = reinterpret_cast<float*>(smem_raw);
+  double* part = reinterpret_cast<double*>(scoef + cand_head(S, MU, RB));
+  const int nrad = S * MU * RB;
+  double* srad = part + 2 * SUBS * (3 + MU) * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int q = threadIdx.x; q < S * S * MU * RB; q += blockDim.x) scoef[q] = radial[q];
+  if constexpr (STAGE != kStageBasic)
+    for (int q = threadIdx.x; q < nrad * kLd; q += blockDim.x) srad[q] = 0;
+  __syncthreads();
+  const int base = blockIdx.x * 32, i = base + lane;
+  const bool on = i < n;
+  const long long jn = (long long)j * n;
+  const int* kmap = tab + tab[kShellMap];
+  const float* crow0 = scoef + (on ? itypes[i] : 0) * S * MU * RB;
+  const double inv_span = 1.0 / (hi - lo);
+  const Radial rc = {hi, lo + hi, inv_span, 2.0 * inv_span, scaling};
+  double acc[kGroupMax<Sh, STAGE>];  // the group's basic moments, or its gamma
+  double cheb[kCandRB];
+
+  if constexpr (STAGE == kStageBasic) {
+    static_for<SUBS>([&](auto Wc) {
+      constexpr int W = decltype(Wc)::value;
+      if (warp != W || !on) return;
+#pragma unroll
+      for (int l = 0; l < kGroupMax<Sh, STAGE>; ++l) acc[l] = 0;
+      for_live_slots(dispT, mask, jtypes_t, n, j, i, [](long long) {},
+                     [&](const Pair& p, long long) {
+                       cand_group_pair<Sh, STAGE, W>(p, crow0 + p.jt * MU * RB, RB, rc, acc,
+                                                     cheb, nullptr);
+                     });
+      for_group_terms<Sh, STAGE, W>([&](auto, auto, auto C) {
+        constexpr int c = decltype(C)::value;
+        constexpr int l = kLocOf<Sh, STAGE, c>;
+        out[(long long)__ldg(kmap + c) * n + i] = acc[l];
+      });
+    });
+  } else {
+    static_for<SUBS>([&](auto Wc) {
+      constexpr int W = decltype(Wc)::value;
+      if (warp != W || !on) return;
+      for_group_terms<Sh, STAGE, W>([&](auto, auto, auto C) {
+        constexpr int c = decltype(C)::value;
+        constexpr int l = kLocOf<Sh, STAGE, c>;
+        acc[l] = __ldg(gamma + (long long)__ldg(kmap + c) * n + i);
+      });
+    });
+    // warps 0-2 write the zeros of component `warp` at the dead slots
+    auto dead = [&](long long o) {
+      if (warp < 3) out[warp * jn + o] = 0.f;
+    };
+    const int prow = (3 + MU) * 32;  // one group's partial sums
+    for_live_slots_lockstep(
+        dispT, mask, jtypes_t, n, j, i, on, dead,
+        [&](const Pair& p, long long, int buf) {
+          double* mine = part + (buf * SUBS + warp) * prow + lane;
+          static_for<SUBS>([&](auto Wc) {
+            constexpr int W = decltype(Wc)::value;
+            if (warp == W)
+              cand_group_pair<Sh, STAGE, W>(p, crow0 + p.jt * MU * RB, RB, rc, acc, cheb,
+                                            mine);
+          });
+        },
+        [&](const Pair& p, long long o, int buf) {
+          const double* ps = part + buf * SUBS * prow + lane;
+          if (warp < 3) {
+            double T = 0;
+#pragma unroll
+            for (int s = 0; s < SUBS; ++s) T += ps[s * prow + warp * 32];
+            out[warp * jn + o] = (float)T;
+          }
+#pragma unroll
+          for (int mu = 0; mu < MU; ++mu) {
+            if (mu % SUBS != warp) continue;
+            double G = 0;
+#pragma unroll
+            for (int s = 0; s < SUBS; ++s) G += ps[s * prow + (3 + mu) * 32];
+            const double h = (double)p.w * G;
+            double* row = srad + (p.jt * MU + mu) * RB * kLd + lane;
+#pragma unroll
+            for (int r = 0; r < kCandRB; ++r)
+              if (r < RB) row[r * kLd] += h * cheb[r];
+          }
+        });
+    __syncthreads();
+    const int valid = min(32, n - base);
+    for (int q = threadIdx.x; q < valid * nrad; q += blockDim.x) {
+      const int a = q / nrad;
+      rad[(long long)base * nrad + q] = srad[(q - a * nrad) * kLd + a];
+    }
+  }
+}
+
 // sum over q in [q0, q1) of x[i0(q)] * y[i1(q)] * mult(q), entries (i0 | i1
 // << 16, mult), in table order; four products are loaded and formed at a
 // time so that their shared-memory reads overlap
@@ -633,11 +1082,14 @@ __device__ __forceinline__ R segment_sum(const int2* e, int q0, int q1, const R*
   return acc;
 }
 
-// The product DAG of W atoms per block, one atom per lane; the warps split
-// each wave's targets, which the host orders longest segment first so that
-// round-robin shares them out evenly (module comment). mbg holds the basic
-// moments (B, N) on entry; K2 and K5 write gamma = dm[:B] over them. R is
-// the type of m, dm and every operation: float, or double on K5's path.
+// The product DAG of W atoms per block, one atom per lane of each worker
+// (a group of W lanes; 32 / W of them in a warp, so no lane idles when m and
+// dm of 32 atoms do not fit); the workers split each wave's targets, which
+// the host orders longest segment first so that round-robin shares them out
+// evenly and the groups of a warp take segments of about one length (module
+// comment). mbg holds the basic moments (B, N) on entry; K2 and K5 write
+// gamma = dm[:B] over them. R is the type of m, dm and every operation:
+// float, or double on K5's path.
 template <int MODE, bool kStaged, class R = float>
 __global__ void __launch_bounds__(kDagThreads)
 dag_kernel(R* mbg, const float* __restrict__ xi, const float* __restrict__ per_atom,
@@ -646,29 +1098,29 @@ dag_kernel(R* mbg, const float* __restrict__ xi, const float* __restrict__ per_a
            int n_scal, int W, int n_dag) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   R* smem = reinterpret_cast<R*>(smem_raw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int i = blockIdx.x * W + lane;
-  const bool on = lane < W && i < n;
-  const int a = min(lane, W - 1);  // lanes >= W read a real column, write nothing
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = 32 / W, grp = lane / W, a = lane - grp * W;
+  const int wk = warp * groups + grp, nwk = (blockDim.x >> 5) * groups;  // worker, workers
+  const int i = blockIdx.x * W + a;
+  const bool on = i < n;
+  const int extra = MODE == kCand ? bm_stride(n_scal) : 0;
   R* m = smem;                         // [M][W]
-  R* dm = smem + (long long)M * W;  // [max(M, nw)][W]
+  R* dm = smem + (long long)M * W;  // [max(M, nwk + extra)][W]
   // the DAG sections (n_dag ints from an even offset) in shared memory when
   // they fit beside m and dm (kStaged), so that table reads are shared
   // loads and wait on no cache
   const int base = tab[kFwdWave] & ~1;
   const int* dag = tab + base;
   if constexpr (kStaged) {
-    int2* st = reinterpret_cast<int2*>(smem + dag_floats(M, W));  // 8-byte aligned
+    int2* st = reinterpret_cast<int2*>(smem + dag_floats(M, W, extra));  // 8-byte aligned
     const int2* src = reinterpret_cast<const int2*>(tab + base);
 #pragma unroll 4
     for (int q = threadIdx.x; q < n_dag / 2; q += blockDim.x) st[q] = __ldg(src + q);
     dag = reinterpret_cast<const int*>(st);
   }
-  if (lane < W) {
 #pragma unroll 8
-    for (int k = warp; k < B; k += nw) m[k * W + a] = on ? __ldcg(mbg + (long long)k * n + i) : R(0);
-    for (int k = B + warp; k < M; k += nw) m[k * W + a] = 0;
-  }
+  for (int k = wk; k < B; k += nwk) m[k * W + a] = on ? __ldcg(mbg + (long long)k * n + i) : R(0);
+  for (int k = B + wk; k < M; k += nwk) m[k * W + a] = 0;
   __syncthreads();
 
   const int* fwave = dag + (tab[kFwdWave] - base);
@@ -676,60 +1128,66 @@ dag_kernel(R* mbg, const float* __restrict__ xi, const float* __restrict__ per_a
   const int* fseg = dag + (tab[kFwdSeg] - base);
   const int2* fprod = reinterpret_cast<const int2*>(dag + (tab[kFwdProd] - base));
   for (int wv = 0; wv < n_waves; ++wv) {
-    for (int t = fwave[wv] + warp; t < fwave[wv + 1]; t += nw) {
-      const R acc = segment_sum<R>(fprod, fseg[t], fseg[t + 1], m, m, W, a);
-      if (lane < W) m[ftgt[t] * W + a] += acc;
-    }
+    for (int t = fwave[wv] + wk; t < fwave[wv + 1]; t += nwk)
+      m[ftgt[t] * W + a] += segment_sum<R>(fprod, fseg[t], fseg[t + 1], m, m, W, a);
     __syncthreads();
   }
 
   if constexpr (MODE == kSite || MODE == kCand) {
-    // readout: site energy = esp + xi . m, each warp over its strided part
-    // of the nodes, the parts summed in warp order (dm is not in use yet)
+    // readout: site energy = esp + xi . m, each worker over its strided part
+    // of the nodes, the parts summed in worker order (dm is not in use yet)
     R e = 0;
 #pragma unroll 8
-    for (int k = warp; k < M; k += nw) {
+    for (int k = wk; k < M; k += nwk) {
       const R x = __ldg(xi + k);
       if (x != R(0)) e += x * m[k * W + a];
     }
-    R* part = dm;  // [nw][W], within dm's max(M, nw) rows
-    if (lane < W) part[warp * W + a] = e;
+    R* part = dm;  // [nwk][W], within dm's rows
+    part[wk * W + a] = e;
+    // K5: the scalar basis members m[mapping] (the candidate vector's tail),
+    // gathered into [W][ld] rows after the parts, then stored as whole lines
+    R* stage = dm + (long long)nwk * W;
+    const int ld = bm_stride(n_scal);
+    if constexpr (MODE == kCand) {
+      for (int q = threadIdx.x; q < n_scal * W; q += blockDim.x) {
+        const int s = q / W, at = q - s * W;
+        stage[at * ld + s] = m[__ldg(mapping + s) * W + at];
+      }
+    }
     __syncthreads();
-    if (warp == 0 && on) {
+    if (wk == 0 && on) {
       R sum = 0;
-      for (int w = 0; w < nw; ++w) sum += part[w * W + a];
+      for (int w = 0; w < nwk; ++w) sum += part[w * W + a];
       site[i] = (float)(sum + R(per_atom[i]));
     }
     if constexpr (MODE == kSite) return;
-    // scalar basis members m[mapping] (the candidate vector's tail)
-    if (on)
-      for (int q = warp; q < n_scal; q += nw)
-        bm[(long long)i * n_scal + q] = m[__ldg(mapping + q) * W + a];
-    __syncthreads();  // the parts are read before dm is written
+    const long long b0 = (long long)blockIdx.x * W;
+    const int valid = (int)min((long long)W, n - b0);
+    for (int q = threadIdx.x; q < valid * n_scal; q += blockDim.x) {
+      const int at = q / n_scal;
+      bm[b0 * n_scal + q] = stage[at * ld + (q - at * n_scal)];
+    }
+    __syncthreads();  // the parts and the staged members are read before dm is written
   }
 
   if constexpr (MODE == kForces || MODE == kCand) {
     // reverse DAG from dm = xi * de (K5: de = 1), grouped by written node
     R de = 1;
     if constexpr (MODE == kForces) de = (per_atom && on) ? per_atom[i] : 1.f;
-    if (lane < W) {
 #pragma unroll 8
-      for (int k = warp; k < M; k += nw) dm[k * W + a] = R(__ldg(xi + k)) * de;
-    }
+    for (int k = wk; k < M; k += nwk) dm[k * W + a] = R(__ldg(xi + k)) * de;
     __syncthreads();
     const int* rwave = dag + (tab[kRevWave] - base);
     const int* rnode = dag + (tab[kRevNode] - base);
     const int* rseg = dag + (tab[kRevSeg] - base);
     const int2* rent = reinterpret_cast<const int2*>(dag + (tab[kRevEnt] - base));
     for (int wv = n_waves - 1; wv >= 0; --wv) {
-      for (int t = rwave[wv] + warp; t < rwave[wv + 1]; t += nw) {
-        const R acc = segment_sum<R>(rent, rseg[t], rseg[t + 1], dm, m, W, a);
-        if (lane < W) dm[rnode[t] * W + a] += acc;
-      }
+      for (int t = rwave[wv] + wk; t < rwave[wv + 1]; t += nwk)
+        dm[rnode[t] * W + a] += segment_sum<R>(rent, rseg[t], rseg[t + 1], dm, m, W, a);
       __syncthreads();
     }
     if (on)
-      for (int k = warp; k < B; k += nw) __stcg(mbg + (long long)k * n + i, dm[k * W + a]);
+      for (int k = wk; k < B; k += nwk) __stcg(mbg + (long long)k * n + i, dm[k * W + a]);
   }
 }
 
@@ -760,17 +1218,48 @@ void pair_config(const Args& a, int* bd, size_t* smem) {
           sizeof(R) * (size_t)*bd * pair_cols<Sh, STAGE>(a.S, a.MU, a.RB, a.R, a.B);
 }
 
-// atoms per DAG block: as many (up to one per lane) as keep two blocks per
-// SM; the block's dynamic shared memory (m and dm, and the DAG sections of
-// the table when they fit beside them)
-template <class R = float>
+// atoms per DAG block: as many (up to 32) as keep two blocks per SM; the
+// block's dynamic shared memory (m and dm, and the DAG sections of the table
+// when they fit beside them)
+template <int MODE, class R = float>
 void dag_config(const Args& a, int* W, size_t* smem, bool* staged) {
   constexpr size_t kBudget = 113 * 1024;
+  const int extra = MODE == kCand ? bm_stride(a.n_scal) : 0;
   *W = 32;
-  while (*W > 1 && (size_t)dag_floats(a.M, *W) * sizeof(R) > kBudget) *W >>= 1;
-  *smem = (size_t)dag_floats(a.M, *W) * sizeof(R);
+  while (*W > 1 && (size_t)dag_floats(a.M, *W, extra) * sizeof(R) > kBudget) *W >>= 1;
+  *smem = (size_t)dag_floats(a.M, *W, extra) * sizeof(R);
   *staged = *smem + (size_t)a.n_dag * sizeof(int) <= kBudget;
   if (*staged) *smem += (size_t)a.n_dag * sizeof(int);
+}
+
+// K5's specialised stages: dynamic shared memory of a cand_kernel block
+template <int STAGE>
+size_t cand_smem(const Args& a) {
+  return sizeof(float) * cand_head(a.S, a.MU, a.RB) +
+         sizeof(double) * cand_doubles(STAGE, a.S, a.MU, a.RB);
+}
+
+template <class Sh, int STAGE>
+int launch_cand_as(const Args& a, const double* gamma,
+                   std::conditional_t<STAGE == kStageBasic, double, float>* out, double* rad) {
+  const size_t smem = cand_smem<STAGE>(a);
+  if (const int e = set_smem((const void*)cand_kernel<Sh, STAGE>, smem)) return e;
+  const unsigned blocks = (unsigned)((a.n + 31) / 32);
+  cand_kernel<Sh, STAGE><<<blocks, 32 * kSubs<STAGE>, smem, a.stream>>>(
+      a.dispT, a.mask, a.itypes, a.jtypes_t, a.radial, a.tab, gamma, out, rad, a.n, a.j, a.S,
+      a.RB, a.lo, a.hi, a.scaling);
+  return (int)cudaGetLastError();
+}
+
+template <class Sh, int STAGE>
+int cand_warps_as(const Args& a, int* warps) {
+  const size_t smem = cand_smem<STAGE>(a);
+  int blocks = 0;
+  if (const int e = set_smem((const void*)cand_kernel<Sh, STAGE>, smem)) return e;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, cand_kernel<Sh, STAGE>, 32 * kSubs<STAGE>, smem);
+  *warps = blocks * kSubs<STAGE>;
+  return e;
 }
 
 template <class Sh, int STAGE, class R = float>
@@ -828,6 +1317,38 @@ int pair_warps(const Args& a, int* warps) {
   }
 }
 
+// K5's pair stage STAGE in double: its specialised instantiation when the
+// schedule has a specialised shape and RB <= kCandRB, else General
+__host__ inline int k5_shape(const Args& a) { return a.RB <= kCandRB ? a.shape : 0; }
+
+template <int STAGE>
+int launch_k5_pair(const Args& a, const double* gamma,
+                   std::conditional_t<STAGE == kStageBasic, double, float>* out, double* rad) {
+  if (a.n == 0) return 0;
+  switch (k5_shape(a)) {
+#define MTP_CASE(id, ...) \
+  case id:                \
+    return launch_cand_as<Shells<__VA_ARGS__>, STAGE>(a, gamma, out, rad);
+    MTP_SHAPES(MTP_CASE)
+#undef MTP_CASE
+    default:
+      return launch_pair_as<General, STAGE, double>(a, gamma, out, rad);
+  }
+}
+
+template <int STAGE>
+int k5_pair_warps(const Args& a, int* warps) {
+  switch (k5_shape(a)) {
+#define MTP_CASE(id, ...) \
+  case id:                \
+    return cand_warps_as<Shells<__VA_ARGS__>, STAGE>(a, warps);
+    MTP_SHAPES(MTP_CASE)
+#undef MTP_CASE
+    default:
+      return pair_warps_as<General, STAGE, double>(a, warps);
+  }
+}
+
 // the DAG keeps two blocks of m and dm per SM: ask for the largest carveout
 template <int MODE, bool kStaged, class R = float>
 int dag_smem(size_t smem) {
@@ -845,7 +1366,7 @@ int launch_dag(const Args& a, R* mbg, float* site, R* bm = nullptr) {
   int W;
   size_t smem;
   bool staged;
-  dag_config<R>(a, &W, &smem, &staged);
+  dag_config<MODE, R>(a, &W, &smem, &staged);
   const unsigned blocks = (unsigned)((a.n + W - 1) / W);
   if (staged) {
     if (const int e = dag_smem<MODE, true, R>(smem)) return e;
@@ -894,6 +1415,25 @@ Args args(const void* dispT, const void* mask, const void* itypes, const void* j
   return a;
 }
 
+// resident warps per SM of a DAG stage, its atoms per block and 1 if its
+// table is staged in shared memory, into out[0..2]
+template <int MODE, class R>
+int dag_warps(const Args& a, int* out) {
+  int W, blocks = 0;
+  size_t smem;
+  bool staged;
+  dag_config<MODE, R>(a, &W, &smem, &staged);
+  const void* k = staged ? (const void*)dag_kernel<MODE, true, R>
+                         : (const void*)dag_kernel<MODE, false, R>;
+  if (const int e = staged ? dag_smem<MODE, true, R>(smem) : dag_smem<MODE, false, R>(smem))
+    return e;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kDagThreads, smem);
+  out[0] = blocks * kDagThreads / 32;
+  out[1] = W;
+  out[2] = staged;
+  return e;
+}
+
 }  // namespace
 
 // The K4, K2, K6 and K7 entry points share one argument list; per_atom is
@@ -912,10 +1452,12 @@ Args args(const void* dispT, const void* mask, const void* itypes, const void* j
        MU, RB, R, B, M, n_waves, n_dag, shape, lo, hi, scaling, stream)
 
 // Resident warps per SM of each stage kernel for this schedule: warps[0]
-// basic, [1] tail, [2] tail with the radial rows (K5), [3] DAG (K2); [4]
-// the DAG's atoms per block, [5] 1 if its table is staged in shared memory.
+// basic, [1] tail, [2] DAG (K2), [3] the DAG's atoms per block, [4] 1 if its
+// table is staged in shared memory; K5's in double: [5] basic, [6] tail with
+// the radial rows, [7] DAG, [8] its atoms per block, [9] its table staged,
+// [10] 1 if K5 runs its specialised stages, 0 for General.
 extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, int n_dag,
-                                   int shape, int* warps) {
+                                   int n_scal, int shape, int* warps) {
   Args a = {};
   a.S = S;
   a.MU = MU;
@@ -924,23 +1466,16 @@ extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, i
   a.B = B;
   a.M = M;
   a.n_dag = n_dag;
+  a.n_scal = n_scal;
   a.shape = shape;
   if (const int e = pair_warps<kStageBasic>(a, warps)) return e;
   if (const int e = pair_warps<kStageTail>(a, warps + 1)) return e;
-  if (const int e = pair_warps_as<General, kStageTailCand, double>(a, warps + 2)) return e;
-  int W, blocks = 0;
-  size_t smem;
-  bool staged;
-  dag_config<float>(a, &W, &smem, &staged);
-  const void* k = staged ? (const void*)dag_kernel<kForces, true>
-                         : (const void*)dag_kernel<kForces, false>;
-  if (const int e = staged ? dag_smem<kForces, true>(smem) : dag_smem<kForces, false>(smem))
-    return e;
-  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kDagThreads, smem);
-  warps[3] = blocks * kDagThreads / 32;
-  warps[4] = W;
-  warps[5] = staged;
-  return e;
+  if (const int e = dag_warps<kForces, float>(a, warps + 2)) return e;
+  if (const int e = k5_pair_warps<kStageBasic>(a, warps + 5)) return e;
+  if (const int e = k5_pair_warps<kStageTailCand>(a, warps + 6)) return e;
+  if (const int e = dag_warps<kCand, double>(a, warps + 7)) return e;
+  warps[10] = k5_shape(a) != 0;
+  return 0;
 }
 
 // K4: site energies (N,) = esp + xi . m
@@ -972,28 +1507,29 @@ extern "C" int mtp_basic_moments_vjp(MTP_ARGS) {
 
 // K5: site energies (N,) and pair forces (3, J, N) as floats, basis
 // members (N, n_scal) and radial rows (N, S*MU*RB) as doubles, of one grade
-// step. Every stage runs in double (General only) from the float
-// displacements, coefficients and readout: the grades multiply the
-// candidate vector by the inverse active set, whose conditioning turns the
-// float path's rounding into grade errors near 1e-2 of the largest grade.
-// scratch is a (B, N) double buffer.
+// step. Every stage runs in double from the float displacements,
+// coefficients and readout: the grades multiply the candidate vector by the
+// inverse active set, whose conditioning turns the float path's rounding
+// into grade errors near 1e-2 of the largest grade. The pair stages are the
+// specialised cand_kernel instantiations for a specialised shape with RB <=
+// kCandRB, else the General pair_kernel ones; the DAG is dag_kernel<kCand>.
+// scratch is a (B, N) double buffer; shape as for the other entry points.
 extern "C" int mtp_candidates_mega(const void* dispT, const void* mask, const void* itypes,
                                    const void* jtypes_t, const void* radial, const void* xi,
                                    const void* esp, const void* tab, const void* mapping,
                                    void* site, void* bm, void* rad, void* pair, void* scratch,
                                    int n, int j, int S, int MU, int RB, int R, int B, int M,
-                                   int n_waves, int n_dag, int n_scal, double lo, double hi,
-                                   double scaling, void* stream) {
+                                   int n_waves, int n_dag, int n_scal, int shape, double lo,
+                                   double hi, double scaling, void* stream) {
   Args a = args(dispT, mask, itypes, jtypes_t, radial, xi, esp, tab, pair, nullptr, n, j, S,
-                MU, RB, R, B, M, n_waves, n_dag, 0, 0.f, 0.f, 0.f, stream);
+                MU, RB, R, B, M, n_waves, n_dag, shape, 0.f, 0.f, 0.f, stream);
   a.mapping = (const int*)mapping;
   a.n_scal = n_scal;
   a.lo = lo;
   a.hi = hi;
   a.scaling = scaling;
   double* work = (double*)scratch;
-  if (const int e = launch_pair_as<General, kStageBasic, double>(a, nullptr, work, nullptr))
-    return e;
+  if (const int e = launch_k5_pair<kStageBasic>(a, nullptr, work, nullptr)) return e;
   if (const int e = launch_dag<kCand, double>(a, work, (float*)site, (double*)bm)) return e;
-  return launch_pair_as<General, kStageTailCand, double>(a, work, a.out, (double*)rad);
+  return launch_k5_pair<kStageTailCand>(a, work, a.out, (double*)rad);
 }

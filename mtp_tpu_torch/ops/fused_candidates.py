@@ -3,19 +3,26 @@ members, radial-Jacobian rows and pair forces from one per-pair stage and one
 DAG.
 
 Port of ``mtp_tpu/ops/pallas_moments.py:589 _mega_cand_kernel`` (through
-``candidates_mega`` :674). The CUDA entry point runs K2's stage kernels of
-``csrc/fused_moments.cu`` with de = 1 (their K5 variants), plus the readout
-and the basis members before the reverse pass, and the radial rows
+``candidates_mega`` :674). The CUDA entry point runs three stage kernels of
+``csrc/fused_moments.cu``, as K2 does with de = 1: the basic moments, the
+product DAG (with the readout and the basis members before the reverse
+pass), and the force tail, which also gathers the radial rows
 ``rad[s2, mu, r] = sum_s [jt(s) = s2] w(s) cheb_r(s) Gmu[mu](s)`` with
-``Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s)`` gathered in the force tail.
+``Gmu[mu](s) = sum_{k: mu_k = mu} gamma_k U_k(s)``.
 
-K5 computes in float64 from float32 inputs (the JAX kernel runs in fp32):
-every stage runs its double instantiation, and the candidate vector's blocks
-come out as float64. The grades multiply b by the inverse active set, whose
-conditioning turns fp32 rounding of the per-pair sums into grade errors of
-about 1e-2 of the largest grade; double arithmetic brings them down to the
-rounding of the fp32 coefficients. Site energies and pair forces are
-rounded to float32, as the force path gives them.
+K5 computes in float64 from float32 inputs (the JAX kernel runs in fp32),
+and the candidate vector's blocks come out as float64. The grades multiply b
+by the inverse active set, whose conditioning turns fp32 rounding of the
+per-pair sums into grade errors of about 1e-2 of the largest grade; double
+arithmetic brings them down to the rounding of the fp32 coefficients. Site
+energies and pair forces are rounded to float32, as the force path gives
+them. For the specialised shapes of ``fused_moments.SHAPES`` (levels 8 and
+16) with at most 8 Chebyshev functions, the pair stages are the specialised
+double ``cand_kernel`` instantiations (a block of warps over 32 atoms, each
+warp a compile-time group of the terms); every other schedule runs the
+General double ``pair_kernel`` ones. The DAG is ``dag_kernel`` in double
+either way. :func:`mtp_tpu_torch.ops.fused_moments.resident_warps` says
+which ("K5 specialised") and how many warps each stage keeps per SM.
 
 Layouts follow the JAX kernel (see :mod:`mtp_tpu_torch.ops.fused_moments`):
 inputs dispT (3, J, N), mask (J, N), itypes (N,), jtypes_t (J, N), radial
@@ -52,7 +59,7 @@ K5 = Kernel(
     symbol="mtp_candidates_mega",
     source="mtp_tpu_torch/csrc/fused_moments.cu",
     replaces="mtp_tpu/ops/pallas_moments.py:589",
-    argtypes=(_P,) * 14 + (_I,) * 11 + (_D,) * 3 + (_P,),
+    argtypes=(_P,) * 14 + (_I,) * 12 + (_D,) * 3 + (_P,),
 )
 
 
@@ -154,7 +161,7 @@ def candidates_mega(tables, dispT, mask, itypes, jtypes_t, radial_coeffs, xi_ful
         out["pair_tT"].data_ptr(), work.data_ptr(),
         n, j, s.species_count, s.radial_funcs_count, s.radial_basis_size,
         s.max_rank, s.basic_count, s.alpha_moments_count, tables.n_waves, tables.n_dag, n_scal,
-        s.min_dist, s.max_dist, s.scaling,
+        tables.shape, s.min_dist, s.max_dist, s.scaling,
         torch.cuda.current_stream(dispT.device).cuda_stream,
     )
     return out
