@@ -23,11 +23,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    larger of its bytes over 3.35 TB/s and its fp32 operations on these
    inputs over 67 TFLOP/s) and what bounds it, its launches per main-path
    step and its share of the bound; the fused kernels' device time by
-   stage kernel (``torch.profiler``) and the stage kernels' resident warps
-   per SM (the float stages and K5's double ones). The stage split runs
-   last, after phase 7: a profiler session slows the host-bound runs that
+   stage kernel (``torch.profiler``: ``float_kernel`` for the specialised
+   float stages, ``pair_kernel`` for the General ones) and the stage
+   kernels' resident warps per SM (the float stages and K5's double ones),
+   K2's and K4's in their kernels-line rows. The stage split runs
+   right after phase 7: a profiler session slows the host-bound runs that
    follow it in the same process, and phase 7 times two of them against
-   each other.
+   each other; a window that loses kernel events fails the run.
 6. Active-learning kernels on the phase-3 box, with an MVS state built by
    ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
    K5 against its plain twin on every output, K6 and K7 (through the autograd
@@ -43,10 +45,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    K1-K4 launched, no plain twin called. Then the modular energy path
    (``site_energies_fused``: K6 forward, K7 backward) drives K6 and K7 once
    each, and K5, K6 and K7 at these shapes are held against their plain
-   versions and timed, with their device time by stage kernel and K5's
-   stages' resident warps per SM.
+   versions and timed, with their device time by stage kernel and the
+   resident warps per SM of K5's stages, K6's basic stage and K7's tail.
 
-8. Ensembles (after phase 7, before phase 5's profiler part). (a) The
+8. Ensembles (after phase 7 and phase 5's stage split). (a) The
    phase-3 box: 20 NPT steps from one state on the fp32 kernel path
    (``Simulation.run_async``) and on the float64 plain path (``npt_step``
    over ``mtp_energy_forces``), held to max|dx|, the cell and the
@@ -91,35 +93,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the fp32 kernel path against the float64 plain path on the card, held to
    the gates of phase 3, and the plain fp32 path beside it (the rounding
    floor), both against one oracle, with its time and peak device memory.
-11. The sharded path (``mtp_tpu_torch.parallel``), before phase 5's
-   profiler part. (a) A world of one NCCL rank at the main path's width,
-   from phase 4's state: ``ShardedSimulation.run_async`` and the
-   single-device ``Simulation.run_async``, 60 NVE steps each, in turns over
-   three rounds (atom-steps/s of both); positions and forces of the two
-   compared; the kernel path's energy, forces and virial at the final
-   positions held to phase 3's gates against the float64 plain path; K1-K4
-   launched and no plain twin called; a 10-step block under
-   ``torch.cuda.set_sync_debug_mode("error")``; the device's idle share of
-   one traced block. (b) The same box as 2 slabs on 2 rank processes
-   sharing the card (``--sharded-rank``, gloo with the messages staged
-   through host memory, ``Comm(transport="gloo-staged")``, a time limit of
-   its own): NVE for 2 blocks of 30 steps, atoms migrating, then one
-   ``grade_eval`` with phase 7's MVS (K5), its forces, energy and virial
-   held to phase 3's gates and its grades to phase 6's against the float64
-   plain path, and against the single-device port at the same positions;
-   the halo size, the migration counts and ms per step. Each rank then
-   holds K1-K5 against their plain twins on its own block rows (N = C + 2H,
-   padding rows in the trash bin, ghost rows masked as centers), at the
-   kernel rows' limits.
+11. The sharded path (``mtp_tpu_torch.parallel``). (a) A world of one NCCL
+   rank at the main path's width, from phase 4's state:
+   ``ShardedSimulation.run_async`` and the single-device
+   ``Simulation.run_async``, 60 NVE steps each, in turns over three rounds
+   (atom-steps/s of both); positions and forces of the two compared; the
+   kernel path's energy, forces and virial at the final positions held to
+   phase 3's gates against the float64 plain path; K1-K4 launched and no plain
+   twin called; a 10-step block under
+   ``torch.cuda.set_sync_debug_mode("error")``; the device's idle share of one
+   traced block. (b) The same box as 2 slabs on 2 rank processes sharing the
+   card (``--sharded-rank``, gloo with the messages staged through host
+   memory, ``Comm(transport="gloo-staged")``, a time limit of its own): NVE
+   for 2 blocks of 30 steps, atoms migrating, then one ``grade_eval`` with
+   phase 7's MVS (K5), its forces, energy and virial held to phase 3's gates
+   and its grades to phase 6's against the float64 plain path, and against the
+   single-device port at the same positions; the halo size, the migration
+   counts and ms per step. Each rank then holds K1-K5 against their plain
+   twins on its own block rows (N = C + 2H, padding rows in the trash bin,
+   ghost rows masked as centers), at the kernel rows' limits.
 
 12. The long narrow box (``mtp_tpu_torch.parallel.sharded_md``'s
-   row-gather API on the one sharded engine), before phase 5's profiler
-   part: the level-16 fp32 model on fcc 500 x 4 x 4 cells (32,000 atoms,
-   2,000 x 16 x 16 A, 300 K), a grid of (357, 2, 2) bins at cutoff + skin.
+   row-gather API on the one sharded engine): the level-16 fp32 model on
+   fcc 500 x 4 x 4 cells (32,000 atoms, 2,000 x 16 x 16 A, 300 K), a grid
+   of (357, 2, 2) bins at cutoff + skin.
    (a) A world of one NCCL rank: ``make_sharded_md_block`` NVE and NVT, 6
    blocks of 10 steps each from the fresh 300 K lattice, beside
    ``Simulation.run_async`` in six calls of 10 from the same state; NVE
-   bit-equal, NVT within 1e-4 A and phase 3's force gate; K1-K4 launched,
+   bit-equal, NVT within ``nvt_dx_limit`` (each coordinate to the larger
+   of 1e-4 A and one fp32 spacing of the reference coordinate) and phase
+   3's force gate; K1-K4 launched,
    no plain twin called; ms per step and atom-steps/s of both; an NVE
    block under the sync debugger; the energy, forces and virial of
    ``compute_sharded_forces`` at the final positions held to phase 3's
@@ -315,6 +318,14 @@ def kernel_row(kern, launches, err, ms, plain_ms, model, n, j, live):
     )
 
 
+def device_share(row, dev_ms):
+    """Set a kernels-line row's device ms (from `stage_ms`, which fails on
+    an empty window) and share of its bound; returns the share as text."""
+    row["device_ms"] = dev_ms
+    row["share"] = row["bound_ms"] / dev_ms
+    return f"{row['share']:.1%}"
+
+
 def kernel_inputs(model, state_pos, cell, types, swl):
     """Sorted positions, the window constants and the kernels' inputs, the
     geometry from the force path's own preamble (K1)."""
@@ -448,7 +459,10 @@ _STAGES = {"pair_kernel": ("basic", "tail", "tail + radial rows"),
 
 def stage_ms(calls, reps=10):
     """{entry point: {stage kernel: device ms per call}}, each entry point's
-    from one torch.profiler window of `reps` calls after a warm-up call."""
+    from one torch.profiler window of `reps` calls after a warm-up call.
+    Fails if a window recorded no kernel, or a kernel a number of times that
+    is not a multiple of `reps` (events lost: a profiler session late in a
+    long process once recorded half of them, or none)."""
     import re
 
     import torch
@@ -463,24 +477,30 @@ def stage_ms(calls, reps=10):
             for _ in range(reps):
                 fn()
             torch_sync()
-        per = {}
+        per, counts = {}, {}
         for evt in prof.key_averages():
             us = _device_us(evt)
             if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
                 continue
-            # pair_kernel<shape, stage, type> (K5's General shape in double),
-            # cand_kernel<shape, stage> (K5's specialised shapes, double),
-            # dag_kernel<mode, staged, type>
+            counts[evt.key] = evt.count
+            # pair_kernel<General, stage, type> (every schedule without a
+            # specialised shape), float_kernel<shape, stage> (the specialised
+            # float stages), cand_kernel<shape, stage> (K5's specialised
+            # shapes, double), dag_kernel<mode, staged, type>
             m = re.search(r"pair_kernel<.*, (\d), (float|double)>\(", evt.key)
+            f = re.search(r"float_kernel<.*, (\d)>\(", evt.key)
             c = re.search(r"cand_kernel<.*, (\d)>\(", evt.key)
             d = re.search(r"dag_kernel<(\d), \w+, (float|double)>", evt.key)
             k = re.search(r"(\w+(<[^()]*>)?)\(", evt.key)  # a kernel's name, template included
-            general = ", General" if m and m.group(2) == "double" else ""
-            name = (f"{_STAGES['pair_kernel'][int(m.group(1))]} ({m.group(2)}{general})" if m else
+            name = (f"{_STAGES['pair_kernel'][int(m.group(1))]} ({m.group(2)}, General)" if m else
+                    f"{_STAGES['pair_kernel'][int(f.group(1))]} (float, specialised)" if f else
                     f"{_STAGES['pair_kernel'][int(c.group(1))]} (double, specialised)" if c else
                     f"{_STAGES['dag_kernel'][int(d.group(1))]} ({d.group(2)})" if d else
                     k.group(1)[-40:] if k else evt.key[:40])
             per[name] = per.get(name, 0.0) + us / reps / 1e3
+        check(bool(per) and all(c % reps == 0 for c in counts.values()),
+              f"{label}: the profiler window of {reps} calls recorded "
+              f"{ {key[-60:]: c for key, c in counts.items()} }")
         out[label] = per
     return out
 
@@ -752,22 +772,24 @@ def al_path_phase(dev, card):
     counts = {"candidates_mega": launches["candidates_mega"], **{
         name: mod[name] for name in ("basic_moments_fused", "basic_moments_vjp")}}
     j = nl.idx.shape[1]
-    # K5's double stages (specialised for this level-16 schedule)
-    k5_warps = {key: v for key, v in fm.resident_warps(model.tables).items()
-                if key.startswith("K5")}
-    print(f"[7 occupancy] resident warps per SM of K5's stages (CUDA occupancy calculator): "
-          f"{k5_warps}")
+    # K5's double stages and the float stages of K6 and K7 (specialised for
+    # this level-16 schedule)
+    warps = fm.resident_warps(model.tables, j)
+    k5_warps = {key: v for key, v in warps.items() if key.startswith("K5")}
+    stage_warps = {"basic_moments_fused": {"basic": warps["basic"]},
+                   "basic_moments_vjp": {"tail": warps["tail"]}, "candidates_mega": k5_warps}
+    print(f"[7 occupancy] resident warps per SM (CUDA occupancy calculator) of K5's stages "
+          f"{k5_warps}; of K6's basic stage {warps['basic']} and K7's tail {warps['tail']} "
+          f"(float specialised {warps['float specialised']})")
     rows = []
     for kern in kernels[4:]:
         err, ms, plain_ms, dev_ms = res[kern.name]
         row = kernel_row(kern, counts[kern.name], err, ms, plain_ms, model, n, j, live)
-        row["device_ms"] = dev_ms
-        row["share"] = row["bound_ms"] / dev_ms
-        if kern.name == "candidates_mega":
-            row["resident_warps"] = k5_warps
+        share = device_share(row, dev_ms)
+        row["resident_warps"] = stage_warps[kern.name]
         print(f"  {kern.name}: {ms:.4f} ms by CUDA events around the wrapper, {dev_ms:.4f} ms "
               f"on the device (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), {row['share']:.1%} of the device time")
+              f"({row['bound_by']}), {share} of the device time")
         rows.append(row)
     return rows, model, state
 
@@ -1632,6 +1654,17 @@ def narrow_box(dev):
     return thermalize(torch.Generator(device=dev).manual_seed(SEED), st, 300.0)
 
 
+def nvt_dx_limit(ref):
+    """Per-coordinate limit of a position difference from the reference
+    positions `ref` (fp32): the larger of 1e-4 A and one fp32 spacing of
+    the reference coordinate. Two NVT runs that sum the thermostat's kinetic
+    energy in different orders are not bit-equal, and above 1,024 A one
+    spacing is 1.221e-04 A, more than 1e-4."""
+    import torch
+
+    return torch.clamp(torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref, min=1e-4)
+
+
 def narrow_world_of_one(dev, card, m, model, state):
     """Phase 12a: the long box on a world of one NCCL rank through the
     row-gather API, NVE and NVT blocks beside the single-device run.
@@ -1701,10 +1734,13 @@ def narrow_world_of_one(dev, card, m, model, state):
                 bit = all(torch.equal(getattr(s, a), getattr(ref, a)) for a in (
                     "positions", "velocities", "forces", "potential_energy"))
                 dx = float((s.positions - ref.positions).abs().max())
+                dx_of_limit = float(((s.positions - ref.positions).abs()
+                                     / nvt_dx_limit(ref.positions)).max())
                 dfs = float((s.forces - ref.forces).abs().max())
                 steps = k * blocks
                 report[ens] = dict(
-                    bit_equal=bit, max_dx=dx, max_df=dfs, launches=launches, plain=plain,
+                    bit_equal=bit, max_dx=dx, max_dx_of_limit=dx_of_limit, max_df=dfs,
+                    launches=launches, plain=plain,
                     ms_per_step=wall / steps * 1e3, atom_steps_per_s=n * steps / wall,
                     single_ms_per_step=wall1 / steps * 1e3,
                     single_atom_steps_per_s=n * steps / wall1,
@@ -1713,13 +1749,15 @@ def narrow_world_of_one(dev, card, m, model, state):
                       f"of {k}: {wall / steps * 1e3:.4f} ms per step ({n * steps / wall:.1f} "
                       f"atom-steps/s), single-device {wall1 / steps * 1e3:.4f} ms "
                       f"({n * steps / wall1:.1f}); bit-equal {bit}, max|dx|={dx:.3e} A "
-                      f"max|dF|={dfs:.3e} eV/A; launches {launches}; plain calls {plain} "
+                      f"({dx_of_limit:.3f} of its limit) max|dF|={dfs:.3e} eV/A; launches "
+                      f"{launches}; plain calls {plain} "
                       f"on {card}")
                 if ens == "nve":
                     check(bit, "phase 12a NVE left the single-device trajectory")
                     nve_block, nve_out, nve_launches = block, s, launches
                 else:
-                    check(dx < 1e-4 and dfs < GATE_DF, "phase 12a NVT left the single-device run")
+                    check(dx_of_limit <= 1.0 and dfs < GATE_DF,
+                          "phase 12a NVT left the single-device run")
             # a block reads nothing back
             torch_sync()
             torch.cuda.set_sync_debug_mode("error")
@@ -2139,8 +2177,15 @@ def main() -> int:
     # ---- 7. the AL path at full width
     rows7, al_model, al_state = al_path_phase(dev, card)
 
-    # ---- 8. the other ensembles, run, FIRE and AL under NPT; before phase
-    # 5's profiler part, which slows the host-bound runs after it
+    # ---- 5, continued: device time by stage kernel at phase 5's inputs.
+    # Taken after phase 7: a torch.profiler session slows the host-bound
+    # runs that follow it in the process and widens their spread (`python -m
+    # mtp_tpu_torch.utils.prof --al`), and phase 7 times two such runs
+    # against each other; and not at the end, where the windows lost events.
+    stages = stage_ms(stage_calls)
+    print_stages("5", stages)
+
+    # ---- 8. the other ensembles, run, FIRE and AL under NPT
     ens_report = ensembles_phase(dev, card, m2, p32, c32, ty, model, state, al_model,
                                  al_state)
 
@@ -2150,34 +2195,33 @@ def main() -> int:
     gate_report = gate_phase(dev, card)
 
     # ---- 11. the sharded path: a world of one NCCL rank at full width, and
-    # two gloo ranks on the one card; before phase 5's profiler part
+    # two gloo ranks on the one card
     sharded_report, sharded_counts, sharded_errs = sharded_phase(dev, card, m, model, state,
                                                                  al_model)
 
     # ---- 12. the long narrow box: the row-gather API on one NCCL rank and on
-    # two ranks sharing the card, the standalone grades; before phase 5's
-    # profiler part
+    # two ranks sharing the card, the standalone grades
     narrow_report, narrow_counts, narrow_errs = narrow_phase(dev, card, m, model, al_model)
 
-    # ---- 5, continued: device time by stage kernel. Taken after phase 7:
-    # a torch.profiler session slows the host-bound runs that follow it in
-    # the process and widens their spread (`python -m mtp_tpu_torch.utils.prof
-    # --al`), and phase 7 times two such runs against each other.
-    stages = stage_ms(stage_calls)
+    # ---- 5, continued: the kernels line's rows of K1-K4
     rows = []
-    print_stages("5", stages)
     from mtp_tpu_torch.ops.fused_moments import resident_warps
 
+    warps = resident_warps(model.tables, j)
     print(f"[5 occupancy] resident warps per SM of the stage kernels (CUDA occupancy "
-          f"calculator): {resident_warps(model.tables)}")
+          f"calculator): {warps}")
+    stage_warps = {"pair_forces_mega": ("basic", "DAG", "tail"),
+                   "site_energies_mega": ("basic", "DAG")}
     for k in kernels:
         err, ms, plain_ms = res[k.name]
         row = kernel_row(k, launches[k.name], err, ms, plain_ms, model, n, j, live)
-        row["device_ms"] = dev_ms = sum(stages[k.name].values())
-        row["share"] = row["bound_ms"] / dev_ms
+        dev_ms = sum(stages[k.name].values())
+        share = device_share(row, dev_ms)
+        if k.name in stage_warps:
+            row["resident_warps"] = {key: warps[key] for key in stage_warps[k.name]}
         print(f"  {k.name}: {ms:.4f} ms by CUDA events around the wrapper, {dev_ms:.4f} ms "
               f"on the device (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), {row['share']:.1%} of the device time; "
+              f"({row['bound_by']}), {share} of the device time; "
               f"{launches[k.name] / steps:.4f} launches per main-path step")
         rows.append(row)
     rows += rows7

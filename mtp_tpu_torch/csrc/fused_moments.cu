@@ -13,16 +13,19 @@
 // `_pair_radials` :75, `_u_tables` :122 and `_pair_force_terms` :152.
 //
 // Stages (each entry point runs the ones it needs, in this order):
-//   basic   pair_kernel<Sh, kStageBasic>: per-pair stage and basic moments
-//           m_k = sum_s w f_mu U_k -> (B, N). K6 alone; K4, K2 into a
-//           (B, N) scratch buffer; K5 into a double one (cand_kernel below).
+//   basic   float_kernel<Sh, kStageBasic> for a specialised shape (levels 8
+//           and 16), pair_kernel<General, kStageBasic> for every other
+//           schedule: per-pair stage and basic moments m_k = sum_s w f_mu
+//           U_k -> (B, N). K6 alone; K4, K2 into a (B, N) scratch buffer;
+//           K5 into a double one (cand_kernel below).
 //   dag     dag_kernel<MODE>: the product DAG forward; K4 the readout
 //           esp + xi.m; K2 the reverse DAG from dm = de*xi, gamma = dm[:B]
 //           written over the scratch; K5 both, with de = 1, plus the scalar
 //           basis members m[mapping].
-//   tail    pair_kernel<Sh, kStageTail>: per-pair stage with derivatives
-//           and the force tail from gamma (B, N) -> (3, J, N). K7 alone
-//           (gamma from the caller), K2 after the dag.
+//   tail    float_kernel<Sh, kStageTail> (specialised) or
+//           pair_kernel<General, kStageTail>: per-pair stage with
+//           derivatives and the force tail from gamma (B, N) -> (3, J, N).
+//           K7 alone (gamma from the caller), K2 after the dag.
 // The (B, N) intermediates (16.6 MB at 32k atoms, level 16) stay in the
 // 50 MB L2 between stages: the per-atom DAG state (m and dm, 2.6 KB at
 // level 16) and the per-thread pair state want different thread layouts,
@@ -87,27 +90,30 @@
 // replaces (130 serial warp reductions per atom, int table loads and
 // shared loads per term, 32-sector strided I/O, 20 resident warps per SM,
 // full work on padded slots):
-// - One thread per atom in the pair stages, atoms along a warp's lanes.
-//   Every (3, J, N), (J, N) and (B, N) access of a warp at one slot is one
-//   128-byte line, and the basic moments of the thread's atom are summed in
-//   registers over its own slots: no cross-thread reduction at all.
+// - The basic stages take one thread per atom, atoms along a warp's
+//   lanes: the basic moments of the thread's atom are summed in registers
+//   over its own slots, with no cross-thread reduction at all. The float
+//   tail for a specialised shape shares each block's live pairs out over
+//   its 12 warps (float_kernel below); the General tail is one thread per
+//   atom. Every (B, N) access of a warp is one 128-byte line.
 // - Specialised shapes (MTP_SHAPES: the basic set is every monomial of rank
 //   <= R_mu for each radial function mu) are template parameters. Each
 //   distinct monomial u^(ax, ay, az), and each derivative monomial, is built
-//   once per pair from the unit-vector powers in registers; the (mu,
+//   once per pair from the unit-vector components in registers; the (mu,
 //   monomial) terms are unrolled at compile time, so the inner loops read no
-//   table. One host table (the shell map, read once per thread) puts the
-//   canonical term c = off(mu) + t at its schedule row k. Every other
-//   schedule runs the General instantiation: the same stages with the term
-//   table (B, 4) staged in shared memory and per-thread values in
-//   thread-private shared columns.
-// - The force tail is regrouped by monomial: G_t = sum_mu g f_mu, G'_t =
-//   sum_mu g f'_mu, then T = w (u (P - Q/d) + D/d) with P = sum_t G'_t U_t,
+//   table. One host table (the shell map) puts the canonical term c =
+//   off(mu) + t at its schedule row k. Every other schedule runs the
+//   General instantiation: the same stages with the term table (B, 4)
+//   staged in shared memory and per-thread values in thread-private shared
+//   columns.
+// - The force tail is regrouped by monomial: G_t = sum_mu g f_mu, then T =
+//   w (u (P - Q/d) + D/d) with P = sum_t G'_t U_t (G'_t = sum_mu g f'_mu),
 //   Q = sum_t rank_t G_t U_t and D_a = sum_t G_t alpha_a U_(t - e_a).
 // - Padded and out-of-cutoff slots cost one coalesced mask load: a 64-bit
-//   live mask per chunk of 64 slots, and the thread walks only its live
-//   slots (the next slot's operands are loaded before the current one is
-//   contracted). The tail writes zeros at the dead slots.
+//   live mask per chunk of 64 slots, and a basic-stage thread walks only its
+//   live slots (the next slot's operands are loaded before the current one
+//   is contracted); the float tail lists only the live pairs. The tails
+//   write zeros at the dead slots.
 // - The DAG runs with one atom per lane and the warps of a block splitting
 //   each wave's targets (the host orders them longest segment first), m and
 //   dm as [node][atom] rows in shared memory: every table entry is read at
@@ -116,16 +122,17 @@
 //   it fits beside m and dm (otherwise, from level 18 up, through `__ldg`),
 //   every m and dm access is conflict-free, and the (B, N) rows load and
 //   store as whole lines.
-// - Occupancy: the specialised pair stages take 254 registers, 8 warps per
+// - Occupancy: the specialised basic stage takes 254 registers, 8 warps per
 //   SM, which holds every warp of a 32k-atom launch (1,000, ~7.6 per SM) in
-//   one wave; more resident warps would need the moment sums out of
-//   registers. Each thread has ~130 independent accumulations per slot to
-//   issue while its next slot's loads are in flight. The DAG keeps m and dm
-//   of 32 atoms (85 KB at level 16) and its table (19 KB) per 16-warp
-//   block: 2 blocks, 32 warps per SM (chip_smoke.py prints both from the
-//   occupancy calculator).
+//   one wave; each thread has ~130 independent accumulations per slot to
+//   issue while its next slot's loads are in flight. The specialised tail
+//   keeps gamma in shared memory: 80 registers, 24 warps per SM. The DAG
+//   keeps m and dm of 32 atoms (85 KB at level 16) and its table (19 KB) per
+//   16-warp block: 2 blocks, 32 warps per SM (chip_smoke.py prints every
+//   stage's from the occupancy calculator).
 // - Determinism: every sum runs in a fixed order (slots ascending within a
-//   thread; a DAG target's products in table order), no atomics.
+//   thread; a pair's terms in monomial order; a DAG target's products in
+//   table order), no atomics.
 //
 // Masked slots are never contracted (their d2 would need the d2 = 1 guard
 // of the plain path: pads have disp = 0).
@@ -168,7 +175,7 @@ constexpr int kStageBasic = 0;     // basic moments (B, N)
 constexpr int kStageTail = 1;      // force tail from gamma (B, N)
 constexpr int kStageTailCand = 2;  // force tail, Gmu and the radial rows (K5)
 
-constexpr int kPairThreads = 64;  // specialised pair stages; General uses 32
+constexpr int kPairThreads = 64;  // launch bound of the General pair stages (run with 32)
 constexpr int kDagThreads = 512;  // 16 warps, one atom per lane
 constexpr int kDagWarps = kDagThreads / 32;
 
@@ -217,6 +224,14 @@ __host__ __device__ constexpr int mono_ay(int t) {
   return r - ax - q;
 }
 
+// index t of monomial u^(ax, ay, az) in that order
+__host__ __device__ constexpr int mono_index(int ax, int ay, int az) {
+  const int r = ax + ay + az;
+  int q = 0;
+  for (int b = r; b > ax; --b) q += r - b + 1;
+  return n_mono(r - 1) + q + (r - ax - ay);
+}
+
 // A specialised shape: radial function mu carries every monomial of rank
 // <= R_mu; canonical term c = off(mu) + t.
 template <int... Rs>
@@ -229,6 +244,15 @@ __host__ __device__ constexpr int shell_off(int mu) {
   const int a[] = {Rs...};
   int o = 0;
   for (int q = 0; q < mu; ++q) o += n_mono(a[q]);
+  return o;
+}
+// the same with each shell's terms padded to a multiple of 4 (the float
+// tail's gamma rows, read 4 at a time)
+template <int... Rs>
+__host__ __device__ constexpr int shell_poff(int mu) {
+  const int a[] = {Rs...};
+  int o = 0;
+  for (int q = 0; q < mu; ++q) o += (n_mono(a[q]) + 3) & ~3;
   return o;
 }
 template <int... Rs>
@@ -244,7 +268,9 @@ struct Shells {
   static constexpr int MU = sizeof...(Rs);
   __host__ __device__ static constexpr int r(int mu) { return shell_rank<Rs...>(mu); }
   __host__ __device__ static constexpr int off(int mu) { return shell_off<Rs...>(mu); }
+  __host__ __device__ static constexpr int poff(int mu) { return shell_poff<Rs...>(mu); }
   static constexpr int B = shell_off<Rs...>(sizeof...(Rs));
+  static constexpr int BP = shell_poff<Rs...>(sizeof...(Rs));
   static constexpr int RMAX = shell_rmax<Rs...>();
   static constexpr int NT = n_mono(RMAX);
 };
@@ -284,18 +310,18 @@ __device__ __forceinline__ Pair load_pair(const float* __restrict__ dispT,
   return p;
 }
 
-// Calls body(pair, o) for every slot of atom i with mask > 0, slots
-// ascending (o = s * n + i), and dead(o) for every other slot. The next live
-// slot's operands are loaded before body runs on the current one.
-template <class Dead, class Body>
-__device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
-                                               const float* __restrict__ mask,
-                                               const int* __restrict__ jtypes_t, int n, int j,
-                                               int i, Dead dead, Body body) {
-  const long long jn = (long long)j * n;
+// The live slots of atom i, ascending: next() returns o = s * n + i of the
+// next slot with mask > 0, or -1 past the last, after calling dead(o) for
+// every slot with mask <= 0 that it passed. The mask is read 64 slots at a
+// time into a word of bits.
+template <class Dead>
+struct LiveSlots {
+  const float* __restrict__ mask;
+  int n, j, i;
+  Dead dead;
   int base = -64;
   uint64_t bits = 0;
-  auto next = [&]() -> long long {
+  __device__ __forceinline__ long long next() {
     while (bits == 0) {
       base += 64;
       if (base >= j) return -1;
@@ -312,14 +338,30 @@ __device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
     const int q = __ffsll((long long)bits) - 1;
     bits &= bits - 1;
     return (long long)(base + q) * n + i;
-  };
-  long long o = next();
+  }
+};
+
+// load(o) of a slot's five operands
+__device__ __forceinline__ auto pair_loads(const float* dispT, const float* mask,
+                                           const int* jtypes_t, int n, int j) {
+  const long long jn = (long long)j * n;
+  return [=](long long o) { return load_pair(dispT, mask, jtypes_t, jn, o); };
+}
+
+// Calls body(pair, o) for every slot of atom i with mask > 0, slots
+// ascending (o = s * n + i), and dead(o) for every other slot. The next live
+// slot's operands, load(o), are loaded before body runs on the current one.
+template <class Load, class Dead, class Body>
+__device__ __forceinline__ void for_live_slots(const float* __restrict__ mask, int n, int j,
+                                               int i, Load load, Dead dead, Body body) {
+  LiveSlots<Dead> scan{mask, n, j, i, dead};
+  long long o = scan.next();
   Pair cur = {};
-  if (o >= 0) cur = load_pair(dispT, mask, jtypes_t, jn, o);
+  if (o >= 0) cur = load(o);
   while (o >= 0) {
-    const long long o2 = next();
+    const long long o2 = scan.next();
     Pair nxt = {};
-    if (o2 >= 0) nxt = load_pair(dispT, mask, jtypes_t, jn, o2);
+    if (o2 >= 0) nxt = load(o2);
     body(cur, o);
     cur = nxt;
     o = o2;
@@ -331,45 +373,24 @@ __device__ __forceinline__ void for_live_slots(const float* __restrict__ dispT,
 // on the lanes that still have a live slot, one __syncthreads(), then
 // after(pair, o, buf) on them; buf alternates 0, 1. All warps see the same
 // live slots, so they leave the loop together. Atoms past n (`on` false)
-// have no slot but keep to the barriers. (The slot scan is for_live_slots'
-// own, repeated rather than shared: the float stages' code, and so their
-// rounding, stays as it was.)
+// have no slot but keep to the barriers.
 template <class Dead, class Body, class After>
 __device__ __forceinline__ void for_live_slots_lockstep(const float* __restrict__ dispT,
                                                         const float* __restrict__ mask,
                                                         const int* __restrict__ jtypes_t, int n,
                                                         int j, int i, bool on, Dead dead,
                                                         Body body, After after) {
-  const long long jn = (long long)j * n;
-  int base = -64;
-  uint64_t bits = 0;
-  auto next = [&]() -> long long {
-    while (bits == 0) {
-      base += 64;
-      if (base >= j) return -1;
-      const int cnt = min(64, j - base);
-#pragma unroll 16
-      for (int q = 0; q < cnt; ++q) {
-        const long long o = (long long)(base + q) * n + i;
-        if (__ldg(mask + o) > 0.f)
-          bits |= 1ull << q;
-        else
-          dead(o);
-      }
-    }
-    const int q = __ffsll((long long)bits) - 1;
-    bits &= bits - 1;
-    return (long long)(base + q) * n + i;
-  };
-  long long o = on ? next() : -1;
+  const auto load = pair_loads(dispT, mask, jtypes_t, n, j);
+  LiveSlots<Dead> scan{mask, n, j, i, dead};
+  long long o = on ? scan.next() : -1;
   Pair cur = {};
-  if (o >= 0) cur = load_pair(dispT, mask, jtypes_t, jn, o);
+  if (o >= 0) cur = load(o);
   for (int buf = 0;; buf ^= 1) {
     const bool have = o >= 0;
     if (!__any_sync(0xffffffffu, have)) break;
-    const long long o2 = have ? next() : -1;
+    const long long o2 = have ? scan.next() : -1;
     Pair nxt = {};
-    if (o2 >= 0) nxt = load_pair(dispT, mask, jtypes_t, jn, o2);
+    if (o2 >= 0) nxt = load(o2);
     if (have) body(cur, o, buf);
     __syncthreads();
     if (have) after(cur, o, buf);
@@ -402,8 +423,34 @@ __device__ __forceinline__ GeoT<R> geometry(const Pair& p, R lo, R hi, R scaling
   return g;
 }
 
-// f_mu (and f'_mu) of one pair from its coefficient row crow (MU, RB): the
-// Chebyshev recursion once, all MU radial functions per step
+// c[mu] = p[mu], mu < MU, by vector loads (p 4 * MU-byte aligned)
+template <int MU>
+__device__ __forceinline__ void load_mu(const float* p, float (&c)[MU]) {
+  if constexpr (MU % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < MU / 4; ++k) {
+      const float4 v = reinterpret_cast<const float4*>(p)[k];
+      c[4 * k] = v.x;
+      c[4 * k + 1] = v.y;
+      c[4 * k + 2] = v.z;
+      c[4 * k + 3] = v.w;
+    }
+  } else if constexpr (MU % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < MU / 2; ++k) {
+      const float2 v = reinterpret_cast<const float2*>(p)[k];
+      c[2 * k] = v.x;
+      c[2 * k + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int mu = 0; mu < MU; ++mu) c[mu] = p[mu];
+  }
+}
+
+// f_mu (and f'_mu) of one pair from its coefficient row crow, transposed to
+// (RB, MU) in shared memory: the Chebyshev recursion once, all MU radial
+// functions per step, their MU coefficients by vector loads
 template <int MU, bool kDeriv>
 __device__ __forceinline__ void radial_funcs(const float* crow, int RB, const Geo& g, float hi,
                                              float lo, float scaling, float (&f)[MU],
@@ -415,19 +462,24 @@ __device__ __forceinline__ void radial_funcs(const float* crow, int RB, const Ge
     g0 = scaling * 2.f * g.dh;
     g1 = scaling * (mult_c * (g.dh * g.dh) + 2.f * g.ksi * g.dh);
   }
+  float c0[MU], c1[MU];
+  load_mu<MU>(crow, c0);
+  load_mu<MU>(crow + MU, c1);
 #pragma unroll
   for (int mu = 0; mu < MU; ++mu) {
-    f[mu] = crow[mu * RB] * v0 + crow[mu * RB + 1] * v1;
-    if constexpr (kDeriv) fp[mu] = crow[mu * RB] * g0 + crow[mu * RB + 1] * g1;
+    f[mu] = c0[mu] * v0 + c1[mu] * v1;
+    if constexpr (kDeriv) fp[mu] = c0[mu] * g0 + c1[mu] * g1;
   }
   for (int r = 2; r < RB; ++r) {
     const float v2 = 2.f * g.ksi * v1 - v0;
     float g2 = 0.f;
     if constexpr (kDeriv) g2 = 2.f * (mult_c * v1 + g.ksi * g1) - g0;
+    float c[MU];
+    load_mu<MU>(crow + r * MU, c);
 #pragma unroll
     for (int mu = 0; mu < MU; ++mu) {
-      f[mu] += crow[mu * RB + r] * v2;
-      if constexpr (kDeriv) fp[mu] += crow[mu * RB + r] * g2;
+      f[mu] += c[mu] * v2;
+      if constexpr (kDeriv) fp[mu] += c[mu] * g2;
     }
     v0 = v1;
     v1 = v2;
@@ -499,44 +551,26 @@ __device__ __forceinline__ void basic_terms(float (&acc)[Sh::B], const float (&f
   }
 }
 
-// G_t = sum_mu g f_mu, G'_t = sum_mu g f'_mu over the shells holding
-// monomial T
-template <class Sh, int T, int MU_ = 0>
-__device__ __forceinline__ void tail_terms(const float (&g)[Sh::B], const float (&f)[Sh::MU],
-                                           const float (&fp)[Sh::MU], float& G, float& Gp) {
-  if constexpr (MU_ < Sh::MU) {
-    if constexpr (mono_rank(T) <= Sh::r(MU_)) {
-      const float gk = g[Sh::off(MU_) + T];
-      G += gk * f[MU_];
-      Gp += gk * fp[MU_];
-    }
-    tail_terms<Sh, T, MU_ + 1>(g, f, fp, G, Gp);
-  }
-}
-
 // values of type R in the thread-private columns of one pair_kernel
 // thread; the block's dynamic shared memory holds the radial coefficients
-// (floats) and the General term table before them (`pair_head` floats)
-__host__ __device__ inline int pair_head(int S, int MU, int RB, int B, bool special) {
-  const int h = S * S * MU * RB + (special ? 0 : 4 * B);
+// (floats) and the term table before them (`pair_head` floats)
+__host__ __device__ inline int pair_head(int S, int MU, int RB, int B) {
+  const int h = S * S * MU * RB + 4 * B;
   return h + (h & 1);  // columns of doubles start 8-byte aligned
 }
 template <class Sh, int STAGE>
 __host__ __device__ inline int pair_cols(int S, int MU, int RB, int R, int B) {
-  int c = 0;
-  if constexpr (!Sh::kSpecial) {
-    c = 3 * (R + 1) + B + MU;              // powers, accumulators or gamma, f
-    if (STAGE != kStageBasic) c += MU;     // f'
-    if (STAGE == kStageTailCand) c += MU;  // Gmu
-  }
-  if (STAGE == kStageTailCand) c += S * MU * RB;  // radial rows
+  int c = 3 * (R + 1) + B + MU;                        // powers, accumulators or gamma, f
+  if (STAGE != kStageBasic) c += MU;                   // f'
+  if (STAGE == kStageTailCand) c += MU + S * MU * RB;  // Gmu, radial rows
   return c;
 }
 
-// The pair stages, one thread per atom (module comment). R is the type of
-// every operation and sum: float, or double on K5's path for the General
-// shape (specialised shapes run K5 on cand_kernel), where the basic moments
-// (B, N) and gamma are doubles too. The pair forces are written as floats.
+// The General pair stages, one thread per atom (module comment), for every
+// schedule without a specialised shape (those run float_kernel below, and
+// K5's double stages cand_kernel). R is the type of every operation and
+// sum: float, or double on K5's path, where the basic moments (B, N) and
+// gamma are doubles too. The pair forces are written as floats.
 template <class Sh, int STAGE, class R = float>
 __global__ void __launch_bounds__(kPairThreads)
 pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
@@ -546,22 +580,21 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
             std::conditional_t<STAGE == kStageBasic, R, float>* __restrict__ out,
             R* __restrict__ rad, int n, int j, int S, int MU, int RB, int RK, int B, R lo,
             R hi, R scaling) {
-  static_assert(std::is_same<R, float>::value || !Sh::kSpecial,
-                "specialised shapes run K5's double stages on cand_kernel");
+  static_assert(!Sh::kSpecial, "specialised shapes run float_kernel and cand_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x, bd = blockDim.x;
   const int ncoef = S * S * MU * RB;
   for (int q = tid; q < ncoef; q += bd) smem[q] = radial[q];
   int* sbasic = reinterpret_cast<int*>(smem + ncoef);
-  const int nb = Sh::kSpecial ? 0 : 4 * B;
+  const int nb = 4 * B;
   for (int q = tid; q < nb; q += bd) sbasic[q] = tab[tab[kBasic] + q];
   __syncthreads();
   const int i = blockIdx.x * bd + tid;
   if (i >= n) return;  // no barrier below
 
   // this thread's columns, stride bd
-  R* col = reinterpret_cast<R*>(smem + pair_head(S, MU, RB, B, Sh::kSpecial)) + tid;
+  R* col = reinterpret_cast<R*>(smem + pair_head(S, MU, RB, B)) + tid;
   const long long jn = (long long)j * n;
   const float* crow0 = smem + (long long)itypes[i] * S * MU * RB;
   R* srad = col;  // K5: S * MU * RB columns first
@@ -577,129 +610,410 @@ pair_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
     }
   };
 
-  if constexpr (Sh::kSpecial) {
-    const int* kmap = tab + tab[kShellMap];
-    float acc[Sh::B];  // basic moments (kStageBasic) or gamma (tail)
-#pragma unroll
-    for (int c = 0; c < Sh::B; ++c)
-      acc[c] = STAGE != kStageBasic ? __ldg(gamma + (long long)__ldg(kmap + c) * n + i) : 0.f;
-    for_live_slots(dispT, mask, jtypes_t, n, j, i, dead, [&](const Pair& p, long long o) {
-      const Geo g = geometry(p, lo, hi, scaling);
-      const float* crow = crow0 + p.jt * Sh::MU * RB;
-      float f[Sh::MU], fp[Sh::MU];
-      radial_funcs<Sh::MU, STAGE != kStageBasic>(crow, RB, g, hi, lo, scaling, f, fp);
-      float px[Sh::RMAX + 1], py[Sh::RMAX + 1], pz[Sh::RMAX + 1];
-      px[0] = py[0] = pz[0] = 1.f;
-#pragma unroll
-      for (int r = 1; r <= Sh::RMAX; ++r) {
-        px[r] = px[r - 1] * g.ux;
-        py[r] = py[r - 1] * g.uy;
-        pz[r] = pz[r - 1] * g.uz;
-      }
-      if constexpr (STAGE == kStageBasic) {
-        float fw[Sh::MU];
-#pragma unroll
-        for (int mu = 0; mu < Sh::MU; ++mu) fw[mu] = f[mu] * p.w;
-        static_for<Sh::NT>([&](auto T) {
-          constexpr int t = decltype(T)::value;
-          constexpr int ax = mono_ax(t), ay = mono_ay(t), az = mono_rank(t) - ax - ay;
-          basic_terms<Sh, t>(acc, fw, px[ax] * (py[ay] * pz[az]));
-        });
-      } else {
-        float P = 0.f, Q = 0.f, Dx = 0.f, Dy = 0.f, Dz = 0.f;
-        static_for<Sh::NT>([&](auto T) {
-          constexpr int t = decltype(T)::value;
-          constexpr int rank = mono_rank(t);
-          constexpr int ax = mono_ax(t), ay = mono_ay(t), az = rank - ax - ay;
-          const float yz = py[ay] * pz[az];
-          const float U = px[ax] * yz;
-          float G = 0.f, Gp = 0.f;
-          tail_terms<Sh, t>(acc, f, fp, G, Gp);
-          P += Gp * U;
-          if constexpr (rank > 0) Q += (float)rank * (G * U);
-          if constexpr (ax > 0) Dx += G * ((float)ax * (px[ax - 1] * yz));
-          if constexpr (ay > 0) Dy += G * ((float)ay * (px[ax] * (py[ay - 1] * pz[az])));
-          if constexpr (az > 0) Dz += G * ((float)az * (px[ax] * (py[ay] * pz[az - 1])));
-        });
-        const float Pr = P - Q * g.inv_d;
-        out[o] = (Pr * g.ux + Dx * g.inv_d) * p.w;
-        out[jn + o] = (Pr * g.uy + Dy * g.inv_d) * p.w;
-        out[2 * jn + o] = (Pr * g.uz + Dz * g.inv_d) * p.w;
-      }
-    });
-    if constexpr (STAGE == kStageBasic) {
-#pragma unroll
-      for (int c = 0; c < Sh::B; ++c) out[(long long)__ldg(kmap + c) * n + i] = acc[c];
+  // per-thread values in shared columns, terms from sbasic
+  R* spx = col;
+  R* spy = spx + (RK + 1) * bd;
+  R* spz = spy + (RK + 1) * bd;
+  R* sacc = spz + (RK + 1) * bd;  // basic moments, or gamma (tail)
+  R* sf = sacc + B * bd;
+  R* sfp = sf + MU * bd;
+  R* sgmu = sfp + MU * bd;
+  for (int k = 0; k < B; ++k)
+    sacc[k * bd] = STAGE != kStageBasic ? __ldg(gamma + (long long)k * n + i) : R(0);
+  const auto load = pair_loads(dispT, mask, jtypes_t, n, j);
+  for_live_slots(mask, n, j, i, load, dead, [&](const Pair& p, long long o) {
+    const GeoT<R> g = geometry<R>(p, lo, hi, scaling);
+    radial_funcs_rt<R>(crow0 + p.jt * MU * RB, MU, RB, g, hi, lo, scaling,
+                       STAGE != kStageBasic, sf, sfp, bd);
+    R x = 1, y = 1, z = 1;
+    for (int r = 0; r <= RK; ++r) {
+      spx[r * bd] = x;
+      spy[r * bd] = y;
+      spz[r * bd] = z;
+      x *= g.ux;
+      y *= g.uy;
+      z *= g.uz;
     }
-  } else {
-    // General: per-thread values in shared columns, terms from sbasic
-    R* spx = col;
-    R* spy = spx + (RK + 1) * bd;
-    R* spz = spy + (RK + 1) * bd;
-    R* sacc = spz + (RK + 1) * bd;  // basic moments, or gamma (tail)
-    R* sf = sacc + B * bd;
-    R* sfp = sf + MU * bd;
-    R* sgmu = sfp + MU * bd;
-    for (int k = 0; k < B; ++k)
-      sacc[k * bd] = STAGE != kStageBasic ? __ldg(gamma + (long long)k * n + i) : R(0);
-    for_live_slots(dispT, mask, jtypes_t, n, j, i, dead, [&](const Pair& p, long long o) {
-      const GeoT<R> g = geometry<R>(p, lo, hi, scaling);
-      radial_funcs_rt<R>(crow0 + p.jt * MU * RB, MU, RB, g, hi, lo, scaling,
-                         STAGE != kStageBasic, sf, sfp, bd);
-      R x = 1, y = 1, z = 1;
-      for (int r = 0; r <= RK; ++r) {
-        spx[r * bd] = x;
-        spy[r * bd] = y;
-        spz[r * bd] = z;
-        x *= g.ux;
-        y *= g.uy;
-        z *= g.uz;
+    if constexpr (STAGE == kStageBasic) {
+      for (int k = 0; k < B; ++k) {
+        const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
+        const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
+        sacc[k * bd] += (sf[mu * bd] * R(p.w)) * (spx[ax * bd] * (spy[ay * bd] * spz[az * bd]));
       }
-      if constexpr (STAGE == kStageBasic) {
-        for (int k = 0; k < B; ++k) {
-          const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
-          const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
-          sacc[k * bd] += (sf[mu * bd] * R(p.w)) * (spx[ax * bd] * (spy[ay * bd] * spz[az * bd]));
+    } else {
+      // `_pair_force_terms`: T_a = u_a sum_k g W1 U + sum_k g W2 alpha_a
+      // u^(alpha - e_a), W2 = f/d, W1 = f' - rank f/d
+      if constexpr (STAGE == kStageTailCand)
+        for (int mu = 0; mu < MU; ++mu) sgmu[mu * bd] = 0;
+      R P = 0, Dx = 0, Dy = 0, Dz = 0;
+      for (int k = 0; k < B; ++k) {
+        const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
+        const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
+        const int rank = ax + ay + az;
+        const R gk = sacc[k * bd];
+        const R W2 = sf[mu * bd] * g.inv_d;
+        const R fpm = sfp[mu * bd];
+        const R W1 = rank ? fpm - (R)rank * W2 : fpm;
+        const R qx = spx[ax * bd], qy = spy[ay * bd], qz = spz[az * bd];
+        const R U = qx * (qy * qz);
+        P += (gk * W1) * U;
+        if constexpr (STAGE == kStageTailCand) sgmu[mu * bd] += gk * U;
+        if (rank) {
+          const R gw2 = gk * W2;
+          if (ax > 0) Dx += gw2 * ((R)ax * (spx[(ax - 1) * bd] * (qy * qz)));
+          if (ay > 0) Dy += gw2 * ((R)ay * (qx * (spy[(ay - 1) * bd] * qz)));
+          if (az > 0) Dz += gw2 * ((R)az * (qx * (qy * spz[(az - 1) * bd])));
         }
-      } else {
-        // `_pair_force_terms`: T_a = u_a sum_k g W1 U + sum_k g W2 alpha_a
-        // u^(alpha - e_a), W2 = f/d, W1 = f' - rank f/d
-        if constexpr (STAGE == kStageTailCand)
-          for (int mu = 0; mu < MU; ++mu) sgmu[mu * bd] = 0;
-        R P = 0, Dx = 0, Dy = 0, Dz = 0;
-        for (int k = 0; k < B; ++k) {
-          const int mu = sbasic[4 * k], ax = sbasic[4 * k + 1];
-          const int ay = sbasic[4 * k + 2], az = sbasic[4 * k + 3];
-          const int rank = ax + ay + az;
-          const R gk = sacc[k * bd];
-          const R W2 = sf[mu * bd] * g.inv_d;
-          const R fpm = sfp[mu * bd];
-          const R W1 = rank ? fpm - (R)rank * W2 : fpm;
-          const R qx = spx[ax * bd], qy = spy[ay * bd], qz = spz[az * bd];
-          const R U = qx * (qy * qz);
-          P += (gk * W1) * U;
-          if constexpr (STAGE == kStageTailCand) sgmu[mu * bd] += gk * U;
-          if (rank) {
-            const R gw2 = gk * W2;
-            if (ax > 0) Dx += gw2 * ((R)ax * (spx[(ax - 1) * bd] * (qy * qz)));
-            if (ay > 0) Dy += gw2 * ((R)ay * (qx * (spy[(ay - 1) * bd] * qz)));
-            if (az > 0) Dz += gw2 * ((R)az * (qx * (qy * spz[(az - 1) * bd])));
-          }
-        }
-        const R w = p.w;
-        out[o] = (float)((P * g.ux + Dx) * w);
-        out[jn + o] = (float)((P * g.uy + Dy) * w);
-        out[2 * jn + o] = (float)((P * g.uz + Dz) * w);
-        if constexpr (STAGE == kStageTailCand)
-          rad_rows<R>(srad, bd, p.jt, MU, RB, g, w, [&](int mu) { return sgmu[mu * bd]; });
       }
-    });
-    if constexpr (STAGE == kStageBasic)
-      for (int k = 0; k < B; ++k) out[(long long)k * n + i] = sacc[k * bd];
-  }
+      const R w = p.w;
+      out[o] = (float)((P * g.ux + Dx) * w);
+      out[jn + o] = (float)((P * g.uy + Dy) * w);
+      out[2 * jn + o] = (float)((P * g.uz + Dz) * w);
+      if constexpr (STAGE == kStageTailCand)
+        rad_rows<R>(srad, bd, p.jt, MU, RB, g, w, [&](int mu) { return sgmu[mu * bd]; });
+    }
+  });
+  if constexpr (STAGE == kStageBasic)
+    for (int k = 0; k < B; ++k) out[(long long)k * n + i] = sacc[k * bd];
   if constexpr (STAGE == kStageTailCand) {
     const int nrad = S * MU * RB;
     for (int q = 0; q < nrad; ++q) rad[(long long)i * nrad + q] = srad[q * bd];
+  }
+}
+
+// ---- The specialised float stages (float_kernel), levels 8 and 16: the
+// basic stage of K2, K4 and K6, and the tail of K2 and K7; a block takes 32
+// atoms. Chosen on an H100 at 32k atoms, level 16, J = 64 (PERF.md §6 lists
+// the variants tried):
+// - The tail lists the block's live (slot, atom) pairs, slot major, one
+//   ballot per slot row, and its 12 warps take them round-robin (thread t:
+//   pairs t, t + blockDim, ...). Its outputs do not cross slots, so no lane
+//   waits for the atom with the most neighbours, and a warp's 32 pairs lie
+//   on one or two rows: its loads of dispT, the mask and jtypes_t and its
+//   stores of the forces touch one or two 128-byte lines each. No thread
+//   holds gamma (the parent's 254 registers, 8 warps per SM): the block
+//   copies its atoms' gamma rows by cp.async into [BP/4][32] float4s (each
+//   shell padded to a multiple of 4 terms), read 4 terms at a time,
+//   conflict-free (the threads of a warp read one address per atom); 80
+//   registers, 24 warps per SM. Before the first pair no thread waits on a
+//   chain of global loads: the mask rows and gamma fly as two cp.async
+//   groups, each warp loading the shell map of its gamma rows at once and
+//   handing it round by shuffles, and the pair list is built while gamma is
+//   in flight. (Ballots on global mask rows and a shell-map load per gamma
+//   row took half of each block's time; the pair loop itself issues ~3
+//   warp instructions a cycle per SM.) Per pair, each monomial U_t is a
+//   lower one times one unit-vector component; P = sum_mu f'_mu A_mu with
+//   A_mu = sum_t gamma U_t, D_a is summed by exponent and weighted once, and
+//   Q = u . D (Euler: U_t is homogeneous of degree rank_t). The zeros of
+//   the dead slots are written from the row masks before the pairs start.
+//   0.111-0.114 ms -> 0.063-0.069 (chip_smoke.py phase 7, H100 SXM at
+//   700 W); tiles of 32 slots, an atom's slots split over warps and
+//   persistent double-buffered blocks were slower.
+// - The basic stage's sums cross slots, so a thread keeps one atom's B sums
+//   in registers and walks its live slots ascending (the parent's scan),
+//   loading a live slot's displacement and, with more than one species, its
+//   type: three gathers, not five (the moments count a slot by mask > 0, so
+//   the mask is read once, in the scan). 0.044 -> 0.041 ms; the slots
+//   staged by cp.async, the terms or slots split over 2-4 warps, the warp
+//   walking the slot rows in lockstep and a 3-deep prefetch ring were all
+//   slower, none beating the scattered gathers' L1 cost.
+// The radial coefficients sit transposed, (RB, MU) per species pair, so
+// that f_mu's MU coefficients of one Chebyshev step are one vector load.
+// Each output element is computed by one thread in one fixed order (a
+// basic moment over the slots ascending), the same whatever the block, the
+// atom's row or N; no atomics.
+// warps of a float_kernel block (32 atoms), and the blocks per SM its
+// register budget is set for: the basic stage one warp (254 registers, 8
+// warps per SM), the tail 12 (80 registers, 2 blocks, 24 warps per SM)
+template <int STAGE>
+constexpr int kFloatWarps = STAGE == kStageBasic ? 1 : 12;
+template <int STAGE>
+constexpr int kFloatBlocks = STAGE == kStageBasic ? 8 : 2;
+// floats of a float_kernel block's shared memory: the radial coefficients
+// (rounded up to 4), then the tail's mask rows [J][32] (once they are
+// read, its pair list [J * 32] of 16-bit slot * 32 + atom), gamma [BP][32],
+// the atoms' types [32], live pairs per warp [32] and row masks [J]. The
+// tail's 33 floats a slot cap J: 4 (head + 32 BP + 64 + 33 J) bytes must fit
+// the 227 KB a block may have, J <= 1,626 at level 16 (BP = 136) with one
+// species and RB = 8. Beyond it the launch fails and the wrapper raises.
+__host__ __device__ inline int float_head(int S, int MU, int RB) {
+  return (S * S * MU * RB + 3) & ~3;
+}
+template <int STAGE>
+__host__ __device__ inline long long float_floats(int S, int MU, int RB, int BP, int j) {
+  const long long tail = STAGE == kStageTail ? j * 32LL + BP * 32 + 64 + j : 0;
+  return float_head(S, MU, RB) + tail;
+}
+
+// a 4-byte copy from global to shared memory, in flight until
+// cp_async_wait (zero when !valid: src is then not read but must be an
+// address of the tensor)
+__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : 0.f;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+// wait until at most `pending` of this thread's newest copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+#endif
+}
+
+// the monomials U_t = u^(ax, ay, az), t < NT, of one pair, each a lower one
+// times one unit-vector component
+template <int NT>
+__device__ __forceinline__ void monomials_of(const Geo& g, float (&U)[NT]) {
+  U[0] = 1.f;
+  static_for<NT - 1>([&](auto T) {
+    constexpr int t = decltype(T)::value + 1;
+    constexpr int ax = mono_ax(t), ay = mono_ay(t), az = mono_rank(t) - ax - ay;
+    if constexpr (ax > 0)
+      U[t] = U[mono_index(ax - 1, ay, az)] * g.ux;
+    else if constexpr (ay > 0)
+      U[t] = U[mono_index(ax, ay - 1, az)] * g.uy;
+    else
+      U[t] = U[mono_index(ax, ay, az - 1)] * g.uz;
+  });
+}
+
+template <int k>
+__device__ __forceinline__ float lane4(const float4& v) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// one pair's force T = w (u (P - Q/d) + D/d) (module comment) with P =
+// sum_mu f'_mu A_mu, A_mu = sum_t gamma U_t, and Q = u . D; gamma of shell
+// mu, monomial t at g4[32 (poff(mu) + t) / 4], component t % 4
+template <class Sh>
+__device__ __forceinline__ void tail_pair(const Pair& p, const float* crow, int RB, float lo,
+                                          float hi, float scaling, const float4* g4,
+                                          float (&out)[3]) {
+  constexpr int MU = Sh::MU, RM = Sh::RMAX;
+  const Geo g = geometry(p, lo, hi, scaling);
+  float f[MU], fp[MU];
+  radial_funcs<MU, true>(crow, RB, g, hi, lo, scaling, f, fp);
+  float U[Sh::NT];
+  monomials_of(g, U);
+  // A_mu = sum_t gamma U_t; D_a by exponent e, D[a][e - 1]
+  float A[MU], D[3][RM];
+#pragma unroll
+  for (int mu = 0; mu < MU; ++mu) A[mu] = 0.f;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) D[0][r] = D[1][r] = D[2][r] = 0.f;
+  float4 gq[MU];  // gamma of terms t .. t + 3 of each shell
+  static_for<Sh::NT>([&](auto T) {
+    constexpr int t = decltype(T)::value;
+    constexpr int rank = mono_rank(t);
+    constexpr int ax = mono_ax(t), ay = mono_ay(t), az = rank - ax - ay;
+    float G = 0.f;
+    static_for<MU>([&](auto M) {
+      constexpr int mu = decltype(M)::value;
+      if constexpr (rank <= Sh::r(mu)) {
+        if constexpr (t % 4 == 0) gq[mu] = g4[(Sh::poff(mu) + t) / 4 * 32];
+        const float gk = lane4<t % 4>(gq[mu]);
+        G += gk * f[mu];
+        A[mu] += gk * U[t];
+      }
+    });
+    if constexpr (ax > 0) D[0][ax - 1] += G * U[mono_index(ax - 1, ay, az)];
+    if constexpr (ay > 0) D[1][ay - 1] += G * U[mono_index(ax, ay - 1, az)];
+    if constexpr (az > 0) D[2][az - 1] += G * U[mono_index(ax, ay, az - 1)];
+  });
+  float Dx = 0.f, Dy = 0.f, Dz = 0.f;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    Dx += (float)(r + 1) * D[0][r];
+    Dy += (float)(r + 1) * D[1][r];
+    Dz += (float)(r + 1) * D[2][r];
+  }
+  // P = sum_t G'_t U_t = sum_mu f'_mu A_mu; Q = sum_t rank_t G_t U_t = u . D
+  // (Euler: U_t is homogeneous of degree rank_t)
+  float P = 0.f;
+#pragma unroll
+  for (int mu = 0; mu < MU; ++mu) P += fp[mu] * A[mu];
+  const float Q = g.ux * Dx + g.uy * Dy + g.uz * Dz;
+  const float Pr = P - Q * g.inv_d;
+  out[0] = (Pr * g.ux + Dx * g.inv_d) * p.w;
+  out[1] = (Pr * g.uy + Dy * g.inv_d) * p.w;
+  out[2] = (Pr * g.uz + Dz * g.inv_d) * p.w;
+}
+
+// gamma row (shell mu, monomial t) of canonical term c in the padded order
+template <class Sh>
+__device__ __forceinline__ int padded_term(int c) {
+  int p = c;
+  static_for<Sh::MU>([&](auto Q) {
+    constexpr int q = decltype(Q)::value;
+    if (c >= Sh::off(q)) p = Sh::poff(q) + c - Sh::off(q);
+  });
+  return p;
+}
+
+// one pair's basic moments, acc[off(mu) + t] += f_mu U_t (a slot counts
+// by mask > 0, as in the plain twin)
+template <class Sh>
+__device__ __forceinline__ void basic_pair(const Pair& p, const float* crow, int RB, float lo,
+                                           float hi, float scaling, float (&acc)[Sh::B]) {
+  const Geo g = geometry(p, lo, hi, scaling);
+  float f[Sh::MU], fp[Sh::MU];
+  radial_funcs<Sh::MU, false>(crow, RB, g, hi, lo, scaling, f, fp);
+  float px[Sh::RMAX + 1], py[Sh::RMAX + 1], pz[Sh::RMAX + 1];
+  px[0] = py[0] = pz[0] = 1.f;
+#pragma unroll
+  for (int r = 1; r <= Sh::RMAX; ++r) {
+    px[r] = px[r - 1] * g.ux;
+    py[r] = py[r - 1] * g.uy;
+    pz[r] = pz[r - 1] * g.uz;
+  }
+  static_for<Sh::NT>([&](auto T) {
+    constexpr int t = decltype(T)::value;
+    constexpr int ax = mono_ax(t), ay = mono_ay(t), az = mono_rank(t) - ax - ay;
+    basic_terms<Sh, t>(acc, f, px[ax] * (py[ay] * pz[az]));
+  });
+}
+
+template <class Sh, int STAGE>
+__global__ void __launch_bounds__(32 * kFloatWarps<STAGE>, kFloatBlocks<STAGE>)
+float_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
+             const int* __restrict__ itypes, const int* __restrict__ jtypes_t,
+             const float* __restrict__ radial, const int* __restrict__ tab,
+             const float* __restrict__ gamma, float* __restrict__ out, int n, int j, int S,
+             int RB, float lo, float hi, float scaling) {
+  constexpr int MU = Sh::MU, B = Sh::B, KW = kFloatWarps<STAGE>;
+  static_assert(STAGE == kStageBasic || STAGE == kStageTail, "");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* scoef = reinterpret_cast<float*>(smem_raw);  // [S][S][RB][MU]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long jn = (long long)j * n;
+  const int* kmap = tab + tab[kShellMap];
+  // the coefficients (S, S, MU, RB) transposed to (S, S, RB, MU)
+  for (int q = threadIdx.x; q < S * S * MU * RB; q += blockDim.x) {
+    const int r = q % RB, mu = (q / RB) % MU, row = q / (RB * MU);
+    scoef[(row * RB + r) * MU + mu] = radial[q];
+  }
+
+  if constexpr (STAGE == kStageBasic) {
+    __syncthreads();
+    const int i = blockIdx.x * 32 + lane;
+    if (i >= n) return;  // no barrier below
+    const float* crow0 = scoef + __ldg(itypes + i) * S * RB * MU;
+    float acc[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) acc[c] = 0.f;
+    // a live slot's displacement and, with more than one species, its type:
+    // its mask is not read again (w = 1: the basic moments count a slot by
+    // mask > 0), three gathers a slot, not five
+    auto load = [&](long long o) {
+      Pair p;
+      p.x = __ldg(dispT + o);
+      p.y = __ldg(dispT + jn + o);
+      p.z = __ldg(dispT + 2 * jn + o);
+      p.w = 1.f;
+      p.jt = S > 1 ? __ldg(jtypes_t + o) : 0;
+      return p;
+    };
+    for_live_slots(mask, n, j, i, load, [](long long) {}, [&](const Pair& p, long long) {
+      basic_pair<Sh>(p, crow0 + p.jt * RB * MU, RB, lo, hi, scaling, acc);
+    });
+#pragma unroll
+    for (int c = 0; c < B; ++c) out[(long long)__ldg(kmap + c) * n + i] = acc[c];
+  } else {
+    const int base = blockIdx.x * 32;
+    const int valid = min(32, n - base);  // atoms of this block
+    const bool on = lane < valid;
+    const int l = min(lane, valid - 1);
+    float* smask = scoef + float_head(S, MU, RB);                     // [J][32]
+    unsigned short* list = reinterpret_cast<unsigned short*>(smask);  // over it: [J * 32]
+    float4* sgam = reinterpret_cast<float4*>(smask + j * 32);         // [BP / 4][32]
+    int* sit = reinterpret_cast<int*>(sgam + Sh::BP / 4 * 32);        // the atoms' types [32]
+    int* scount = sit + 32;                                  // live pairs of each warp's rows
+    unsigned* rows = reinterpret_cast<unsigned*>(scount + 32);  // live atoms of each slot [J]
+    // the mask rows (one copy group), then gamma (a second): warp w takes
+    // the gamma rows c = w (mod KW), its lanes loading their shell map 32
+    // rows at a time and handing it round; row kmap[c] of gamma (B, N) goes
+    // to its padded row p, [p / 4][lane][p % 4]
+    for (int s = warp; s < j; s += KW)
+      copy4_async(smask + s * 32 + lane, mask + (long long)s * n + base + l, on);
+    cp_async_commit();
+    if (warp == 0) sit[lane] = __ldg(itypes + base + l);
+    float* sg = reinterpret_cast<float*>(sgam);
+    for (int c0 = warp; c0 < B; c0 += 32 * KW) {
+      const int cl = c0 + KW * lane;
+      const int km = cl < B ? __ldg(kmap + cl) : 0, pl = cl < B ? padded_term<Sh>(cl) : 0;
+      for (int r = 0; r < 32 && c0 + KW * r < B; ++r) {
+        const int k = __shfl_sync(0xffffffffu, km, r), pr = __shfl_sync(0xffffffffu, pl, r);
+        copy4_async(sg + ((pr >> 2) * 32 + lane) * 4 + (pr & 3),
+                    gamma + (long long)k * n + base + l, on);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // the mask rows are in place; gamma may still be in flight
+    // the live atoms of each slot row, warp w taking the rows [r0, r1)
+    const int per = (j + KW - 1) / KW;
+    const int r0 = min(j, warp * per), r1 = min(j, r0 + per);
+    int count = 0;
+    for (int s = r0; s < r1; ++s) {
+      const unsigned bits = __ballot_sync(0xffffffffu, smask[s * 32 + lane] > 0.f);
+      if (lane == 0) rows[s] = bits;
+      count += __popc(bits);
+    }
+    if (lane == 0) scount[warp] = count;
+    __syncthreads();  // the mask rows are read: the list goes over them
+    int at = 0, total = 0;
+    for (int w = 0; w < KW; ++w) {
+      at += w < warp ? scount[w] : 0;
+      total += scount[w];
+    }
+    // the pair list, and zeros at the dead slots of the rows
+    for (int s = r0; s < r1; ++s) {
+      const unsigned bits = rows[s];
+      const long long o = (long long)s * n + base + lane;
+      if ((bits >> lane) & 1u) {
+        list[at + __popc(bits & ((1u << lane) - 1))] = (unsigned short)(s * 32 + lane);
+      } else if (on) {
+        out[o] = 0.f;
+        out[jn + o] = 0.f;
+        out[2 * jn + o] = 0.f;
+      }
+      at += __popc(bits);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the list and gamma are in place
+    // the pairs, thread t taking t, t + blockDim, ...; the next one's
+    // operands are loaded before the current one is contracted
+    auto slot = [&](int sa) { return (long long)(sa >> 5) * n + base + (sa & 31); };
+    int e = threadIdx.x, sa = e < total ? list[e] : 0;
+    Pair cur = {};
+    if (e < total) cur = load_pair(dispT, mask, jtypes_t, jn, slot(sa));
+    while (e < total) {
+      const int e2 = e + blockDim.x, sa2 = e2 < total ? list[e2] : 0;
+      Pair nxt = {};
+      if (e2 < total) nxt = load_pair(dispT, mask, jtypes_t, jn, slot(sa2));
+      const int a = sa & 31;
+      float f3[3];
+      tail_pair<Sh>(cur, scoef + (sit[a] * S + cur.jt) * RB * MU, RB, lo, hi, scaling, sgam + a,
+                    f3);
+      const long long o = slot(sa);
+      out[o] = f3[0];
+      out[jn + o] = f3[1];
+      out[2 * jn + o] = f3[2];
+      e = e2;
+      sa = sa2;
+      cur = nxt;
+    }
   }
 }
 
@@ -990,7 +1304,7 @@ cand_kernel(const float* __restrict__ dispT, const float* __restrict__ mask,
       if (warp != W || !on) return;
 #pragma unroll
       for (int l = 0; l < kGroupMax<Sh, STAGE>; ++l) acc[l] = 0;
-      for_live_slots(dispT, mask, jtypes_t, n, j, i, [](long long) {},
+      for_live_slots(mask, n, j, i, pair_loads(dispT, mask, jtypes_t, n, j), [](long long) {},
                      [&](const Pair& p, long long) {
                        cand_group_pair<Sh, STAGE, W>(p, crow0 + p.jt * MU * RB, RB, rc, acc,
                                                      cheb, nullptr);
@@ -1204,18 +1518,51 @@ struct Args {
   cudaStream_t stream;
 };
 
+// a kernel's dynamic shared memory; an error (more than the block may have)
+// is returned and cleared, so that the next launch's cudaGetLastError does
+// not report it
 int set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+  const int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)bytes);
+  if (e) cudaGetLastError();
+  return e;
 }
 
-// block size and dynamic shared memory of a pair stage
+// block size and dynamic shared memory of a General pair stage
 template <class Sh, int STAGE, class R = float>
 void pair_config(const Args& a, int* bd, size_t* smem) {
-  *bd = Sh::kSpecial ? kPairThreads : 32;
-  *smem = sizeof(float) * pair_head(a.S, a.MU, a.RB, a.B, Sh::kSpecial) +
+  *bd = 32;
+  *smem = sizeof(float) * pair_head(a.S, a.MU, a.RB, a.B) +
           sizeof(R) * (size_t)*bd * pair_cols<Sh, STAGE>(a.S, a.MU, a.RB, a.R, a.B);
+}
+
+// the specialised float stages: dynamic shared memory of a float_kernel block
+template <class Sh, int STAGE>
+size_t float_smem(const Args& a) {
+  return sizeof(float) * (size_t)float_floats<STAGE>(a.S, Sh::MU, a.RB, Sh::BP, a.j);
+}
+
+template <class Sh, int STAGE>
+int launch_float_as(const Args& a, const float* gamma, float* out) {
+  const size_t smem = float_smem<Sh, STAGE>(a);
+  if (const int e = set_smem((const void*)float_kernel<Sh, STAGE>, smem)) return e;
+  const unsigned blocks = (unsigned)((a.n + 31) / 32);
+  float_kernel<Sh, STAGE><<<blocks, 32 * kFloatWarps<STAGE>, smem, a.stream>>>(
+      a.dispT, a.mask, a.itypes, a.jtypes_t, a.radial, a.tab, gamma, out, a.n, a.j, a.S,
+      a.RB, (float)a.lo, (float)a.hi, (float)a.scaling);
+  return (int)cudaGetLastError();
+}
+
+template <class Sh, int STAGE>
+int float_warps_as(const Args& a, int* warps) {
+  const size_t smem = float_smem<Sh, STAGE>(a);
+  int blocks = 0;
+  if (const int e = set_smem((const void*)float_kernel<Sh, STAGE>, smem)) return e;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, float_kernel<Sh, STAGE>, 32 * kFloatWarps<STAGE>, smem);
+  *warps = blocks * kFloatWarps<STAGE>;
+  return e;
 }
 
 // atoms per DAG block: as many (up to 32) as keep two blocks per SM; the
@@ -1290,17 +1637,18 @@ int pair_warps_as(const Args& a, int* warps) {
   return e;
 }
 
+// a float pair stage: float_kernel for a specialised shape, else General
 template <int STAGE>
-int launch_pair(const Args& a, const float* gamma, float* out, float* rad = nullptr) {
+int launch_pair(const Args& a, const float* gamma, float* out) {
   if (a.n == 0) return 0;
   switch (a.shape) {
 #define MTP_CASE(id, ...) \
   case id:                \
-    return launch_pair_as<Shells<__VA_ARGS__>, STAGE>(a, gamma, out, rad);
+    return launch_float_as<Shells<__VA_ARGS__>, STAGE>(a, gamma, out);
     MTP_SHAPES(MTP_CASE)
 #undef MTP_CASE
     default:
-      return launch_pair_as<General, STAGE>(a, gamma, out, rad);
+      return launch_pair_as<General, STAGE, float>(a, gamma, out, nullptr);
   }
 }
 
@@ -1309,7 +1657,7 @@ int pair_warps(const Args& a, int* warps) {
   switch (a.shape) {
 #define MTP_CASE(id, ...) \
   case id:                \
-    return pair_warps_as<Shells<__VA_ARGS__>, STAGE>(a, warps);
+    return float_warps_as<Shells<__VA_ARGS__>, STAGE>(a, warps);
     MTP_SHAPES(MTP_CASE)
 #undef MTP_CASE
     default:
@@ -1451,14 +1799,18 @@ int dag_warps(const Args& a, int* out) {
   args(dispT, mask, itypes, jtypes_t, radial, xi, per_atom, tab, out, scratch, n, j, S, \
        MU, RB, R, B, M, n_waves, n_dag, shape, lo, hi, scaling, stream)
 
-// Resident warps per SM of each stage kernel for this schedule: warps[0]
+// Resident warps per SM of each stage kernel for this schedule and J slots
+// per atom (the float tail's pair list grows with J): warps[0]
 // basic, [1] tail, [2] DAG (K2), [3] the DAG's atoms per block, [4] 1 if its
 // table is staged in shared memory; K5's in double: [5] basic, [6] tail with
 // the radial rows, [7] DAG, [8] its atoms per block, [9] its table staged,
-// [10] 1 if K5 runs its specialised stages, 0 for General.
+// [10] 1 if K5 runs its specialised stages, 0 for General; [11] 1 if the
+// float basic and tail stages are float_kernel's (a specialised shape), 0
+// for General.
 extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, int n_dag,
-                                   int n_scal, int shape, int* warps) {
+                                   int n_scal, int shape, int j, int* warps) {
   Args a = {};
+  a.j = j;
   a.S = S;
   a.MU = MU;
   a.RB = RB;
@@ -1475,6 +1827,7 @@ extern "C" int mtp_fused_occupancy(int S, int MU, int RB, int R, int B, int M, i
   if (const int e = k5_pair_warps<kStageTailCand>(a, warps + 6)) return e;
   if (const int e = dag_warps<kCand, double>(a, warps + 7)) return e;
   warps[10] = k5_shape(a) != 0;
+  warps[11] = a.shape != 0;
   return 0;
 }
 

@@ -8,9 +8,11 @@ forces from a given gamma = dE/d(basic moments), a cotangent for dispT only,
 as ``_fused_bwd`` :330). Both are stage kernels of ``csrc/fused_moments.cu``:
 K6 is the basic stage of the fused chain (per-pair stage and basic moments),
 writing m[:B] as (B, N); K7 is its tail stage (per-pair stage with
-derivatives and force tail), reading gamma
-(B, N) from memory. :func:`site_energies_fused` (``:799``) adds the product
-DAG as plain torch (:func:`contract_dag_t`) and the readout.
+derivatives and force tail), reading gamma (B, N) from memory. For the
+specialised shapes (levels 8 and 16) both run ``float_kernel``, the other
+schedules the General ``pair_kernel``. :func:`site_energies_fused`
+(``:799``) adds the product DAG as plain torch (:func:`contract_dag_t`) and
+the readout.
 
 Layouts as in :mod:`mtp_tpu_torch.ops.fused_moments`. On CPU tensors the
 Function runs the plain twins (:func:`basic_moments_fused_plain` forward,

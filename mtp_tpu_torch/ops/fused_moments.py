@@ -224,28 +224,30 @@ def build_tables(sched: MTPSchedule, device) -> MegaTables:
     )
 
 
-def resident_warps(tables) -> dict:
-    """Resident warps per SM of each stage kernel for `tables`' schedule, by
-    CUDA's occupancy calculator on the current device: the float stages of
+def resident_warps(tables, j) -> dict:
+    """Resident warps per SM of each stage kernel for `tables`' schedule and
+    `j` slots per atom (the specialised float tail's shared memory grows
+    with J), by CUDA's occupancy calculator on the current device: the float stages of
     K2, K4, K6 and K7 (basic, tail, DAG) and K5's double stages ("K5 basic",
     "K5 tail + radial rows", "K5 DAG"); for each DAG its atoms per block and
     1 if it stages its table in shared memory (else it reads it through the
     read-only cache); "K5 specialised" is 1 when K5 runs its specialised
-    stages for this schedule, 0 for General. Builds the kernels; needs a
-    card."""
+    stages for this schedule, "float specialised" 1 when the float basic
+    and tail stages are the specialised ``float_kernel`` ones, each 0 for
+    General. Builds the kernels; needs a card."""
     from mtp_tpu_torch.kernels._build import LIBRARY
 
     fn = LIBRARY.get().mtp_fused_occupancy
-    fn.argtypes = (_I,) * 9 + (_P,)
+    fn.argtypes = (_I,) * 10 + (_P,)
     fn.restype = _I
     keys = ("basic", "tail", "DAG", "DAG atoms per block", "DAG table staged",
             "K5 basic", "K5 tail + radial rows", "K5 DAG", "K5 DAG atoms per block",
-            "K5 DAG table staged", "K5 specialised")
+            "K5 DAG table staged", "K5 specialised", "float specialised")
     out = (ctypes.c_int * len(keys))()
     s = tables.sched
     err = fn(s.species_count, s.radial_funcs_count, s.radial_basis_size, s.max_rank,
              s.basic_count, s.alpha_moments_count, tables.n_dag, len(s.mapping), tables.shape,
-             ctypes.addressof(out))
+             j, ctypes.addressof(out))
     if err:
         raise RuntimeError(f"occupancy query failed: error {err}")
     return dict(zip(keys, out))
