@@ -2179,9 +2179,10 @@ def main() -> int:
 
     # ---- 5, continued: device time by stage kernel at phase 5's inputs.
     # Taken after phase 7: a torch.profiler session slows the host-bound
-    # runs that follow it in the process and widens their spread (`python -m
-    # mtp_tpu_torch.utils.prof --al`), and phase 7 times two such runs
-    # against each other; and not at the end, where the windows lost events.
+    # runs that follow it in the process and widens their spread, and phase
+    # 7 times two such runs against each other; and not at the end, where
+    # the windows lost events. The AL path's waits by program span: `python
+    # -m mdbench.run --workload fcc32k.al10 --seed 1 --seconds 20 --trace 1`.
     stages = stage_ms(stage_calls)
     print_stages("5", stages)
 

@@ -35,7 +35,7 @@ from mtp_tpu_torch.al.grades import (
     nbh_grades,
 )
 from mtp_tpu_torch.io.cfg_file import CfgWriter
-from mtp_tpu_torch.md.simulation import Simulation
+from mtp_tpu_torch.md.simulation import Simulation, read_cell
 from mtp_tpu_torch.md.state import MDState
 from mtp_tpu_torch.models.mtp import MTPModel
 from mtp_tpu_torch.ops.neighbors import (
@@ -44,6 +44,7 @@ from mtp_tpu_torch.ops.neighbors import (
     check_cell,
     grid_shape,
 )
+from mtp_tpu_torch.utils.tracing import span
 
 
 class BreakThresholdExceeded(RuntimeError):
@@ -129,72 +130,78 @@ class ExtrapolationMonitor:
         """The device half of :meth:`evaluate`: queues the grade computation,
         touches no monitor state, applies no thresholds. Drivers queue it
         BEFORE reading run flags and `_commit` only accepted segments."""
-        model = self.model
-        if isinstance(nl, SortedNeighborList):
-            return grade_eval_window(
-                model, state.positions, state.types, state.cell, nl,
-                model.inverse_active_set, config_mode=model.configuration_mode,
-            )
-        if nl is None:
-            cutoff = model.cutoff
-            cell_h = state.cell.detach().cpu().numpy()
-            check_cell(cell_h, cutoff)
-            grid = grid_shape(cell_h, cutoff)
-            # a truncated neighbor list would silently UNDERESTIMATE grades --
-            # the one failure mode this subsystem exists to prevent -- so grow
-            # the capacity until the build fits
-            while True:
-                nl = build_neighbor_list(
-                    state.positions, state.cell, cutoff,
-                    max_neighbors=self.max_neighbors, grid=grid,
+        with span("al.grade"):
+            model = self.model
+            if isinstance(nl, SortedNeighborList):
+                return grade_eval_window(
+                    model, state.positions, state.types, state.cell, nl,
+                    model.inverse_active_set, config_mode=model.configuration_mode,
                 )
-                if not bool(nl.overflow):
-                    break
-                self.max_neighbors = int(self.max_neighbors * 1.5) + 8
-        out = candidates_and_forces(
-            model, state.positions, state.types, nl.idx, state.cell, nl.mirror,
-        )
-        b = out["b"]
-        if model.configuration_mode:
-            g = cfg_grade(b, model.inverse_active_set, state.n_atoms)
-            grades = None
-        else:
-            grades = nbh_grades(b, model.inverse_active_set)
-            g = torch.max(grades)
-        return dict(
-            forces=out["forces"], energy=out["energy"], max_grade=g,
-            grades=grades, virial=out["virial"],
-        )
+            if nl is None:
+                cutoff = model.cutoff
+                cell_h = read_cell(state.cell)
+                check_cell(cell_h, cutoff)
+                grid = grid_shape(cell_h, cutoff)
+                # a truncated neighbor list would silently UNDERESTIMATE grades --
+                # the one failure mode this subsystem exists to prevent -- so grow
+                # the capacity until the build fits
+                while True:
+                    nl = build_neighbor_list(
+                        state.positions, state.cell, cutoff,
+                        max_neighbors=self.max_neighbors, grid=grid,
+                    )
+                    with span("md.read_flags"):
+                        fits = not bool(nl.overflow)
+                    if fits:
+                        break
+                    self.max_neighbors = int(self.max_neighbors * 1.5) + 8
+            out = candidates_and_forces(
+                model, state.positions, state.types, nl.idx, state.cell, nl.mirror,
+            )
+            b = out["b"]
+            if model.configuration_mode:
+                g = cfg_grade(b, model.inverse_active_set, state.n_atoms)
+                grades = None
+            else:
+                grades = nbh_grades(b, model.inverse_active_set)
+                g = torch.max(grades)
+            return dict(
+                forces=out["forces"], energy=out["energy"], max_grade=g,
+                grades=grades, virial=out["virial"],
+            )
 
     def _commit(self, out: dict, state: MDState, *, refresh_forces: bool):
         """Host half of :meth:`evaluate`: store the observables, apply the
         MLIP-3 thresholds, optionally return the state with forces, energy
         and virial refreshed from the shared pass."""
-        self._nbh_grades = out["grades"]
-        self._max_grade = out["max_grade"]
-        g = out["max_grade"]
-        if self.mlip3_style:
-            g = self.max_grade
-            self._apply_thresholds(state)
-        if refresh_forces:
-            new_state = dataclasses.replace(
-                state,
-                forces=out["forces"],
-                potential_energy=out["energy"],
-                virial=out["virial"],
-            )
-            return g, new_state
-        return g
+        with span("al.commit"):
+            self._nbh_grades = out["grades"]
+            self._max_grade = out["max_grade"]
+            g = out["max_grade"]
+            if self.mlip3_style:
+                with span("al.read_grade"):
+                    g = self.max_grade
+                self._apply_thresholds(state)
+            if refresh_forces:
+                new_state = dataclasses.replace(
+                    state,
+                    forces=out["forces"],
+                    potential_energy=out["energy"],
+                    virial=out["virial"],
+                )
+                return g, new_state
+            return g
 
     def _apply_thresholds(self, state: MDState):
         if self._writer is not None and self.max_grade >= self.select_threshold:
-            self._writer.write(
-                state.cell.detach().cpu().numpy(),
-                state.positions.detach().cpu().numpy(),
-                state.types.cpu().numpy(),
-                grades=None if self.model.configuration_mode else self.nbh_grades,
-                max_grade=self.max_grade,
-            )
+            with span("al.write_cfg"):
+                self._writer.write(
+                    state.cell.detach().cpu().numpy(),
+                    state.positions.detach().cpu().numpy(),
+                    state.types.cpu().numpy(),
+                    grades=None if self.model.configuration_mode else self.nbh_grades,
+                    max_grade=self.max_grade,
+                )
         if (
             self.break_threshold is not None
             and self.max_grade >= self.break_threshold
@@ -220,13 +227,15 @@ def _first_list(sim: Simulation, state: MDState) -> SortedNeighborList:
     """The Simulation's sorted list for the first grade step, grown until it
     fits. The JAX driver grades the starting state on the standalone path;
     here every grade step, the first included, takes the window path."""
-    cell_h = state.cell.detach().cpu().numpy()
+    cell_h = read_cell(state.cell)
     cut_skin = sim.model.cutoff + sim.skin
     check_cell(cell_h, cut_skin)
     grid = grid_shape(cell_h, cut_skin)
     while True:
         nl = sim.rebuild(state, grid=grid, max_neighbors=sim.max_neighbors)
-        if not bool(nl.overflow):
+        with span("md.read_flags"):
+            fits = not bool(nl.overflow)
+        if fits:
             return nl
         _grow_neighbors(sim)
 
@@ -254,7 +263,8 @@ def run_with_extrapolation(
       starts from the forces the grade step computed (``refresh=False``).
 
     Retries a segment with grown capacity / halved rebuild interval on
-    overflow / staleness (the `Simulation.run` contract). `run_kwargs` go to
+    overflow / staleness (the `Simulation.run` contract, counted in
+    ``sim.retries``). `run_kwargs` go to
     :meth:`Simulation.run_async` (``ensemble``, ``dt``, ``temperature``,
     ``pressure``, ``tdamp``, ``pdamp``); the integrator state (chains,
     barostat, Langevin generator) is carried from segment to segment, and a
@@ -277,9 +287,11 @@ def run_with_extrapolation(
             # monitor state, no cfg write, no break), so a tripped segment
             # just discards it and retries.
             pending = monitor._compute(new_state, nl=nl)
-            ovf, stale = torch.stack([flags.overflow, flags.stale]).tolist()
+            with span("md.read_flags"):
+                ovf, stale = torch.stack([flags.overflow, flags.stale]).tolist()
             if ovf:
                 _grow_neighbors(sim)
+                sim.retries["overflow"] += 1
                 continue
             if stale:
                 if sim.steps_per_rebuild <= 1:
@@ -288,6 +300,7 @@ def run_with_extrapolation(
                         "run: system diverging or skin too small"
                     )
                 sim.steps_per_rebuild = max(1, sim.steps_per_rebuild // 2)
+                sim.retries["stale"] += 1
                 continue
             break
         done += k

@@ -43,6 +43,7 @@ from mtp_tpu_torch.ops.neighbors import (
     grid_shape,
 )
 from mtp_tpu_torch.ops.window_disp import cell_product, inverse_cell
+from mtp_tpu_torch.utils.tracing import span
 
 ENSEMBLES = ("nve", "nvt", "langevin", "npt", "npt-aniso", "npt-tri")
 _CONSTANT_CELL = ("nve", "nvt", "langevin")
@@ -84,6 +85,11 @@ class Simulation:
       grid_margin: bins are sized >= grid_margin*(cutoff+skin), so an NPT
         cell can shrink by (grid_margin-1) before the grid, fixed for a
         :meth:`run_async` or :meth:`run_fused` call, trips the geometry flag.
+
+    ``retries`` counts the block attempts that :meth:`run` (and
+    ``al.driver.run_with_extrapolation``) discarded, by cause: ``"overflow"``
+    (J grown) and ``"stale"`` (the block halved); LAMMPS reports the second
+    kind as "Dangerous builds".
     """
 
     model: MTPModel
@@ -92,6 +98,8 @@ class Simulation:
     steps_per_rebuild: int = 10
     compute_virial: bool = True
     grid_margin: float = 1.0
+    retries: dict = dataclasses.field(
+        default_factory=lambda: {"overflow": 0, "stale": 0}, init=False)
 
     def force_fn_window(
         self, swl: SortedNeighborList, types, compute_virial=None, *,
@@ -104,16 +112,18 @@ class Simulation:
         cv = self.compute_virial if compute_virial is None else compute_virial
 
         def fn(positions, types_unused, cell):
-            out = mtp_energy_forces_window(
-                self.model, positions, cell, swl, compute_virial=cv,
-                sorted_io=sorted_io, compute_energy=compute_energy, **consts,
-            )
+            with span("mtp.forces"):
+                out = mtp_energy_forces_window(
+                    self.model, positions, cell, swl, compute_virial=cv,
+                    sorted_io=sorted_io, compute_energy=compute_energy, **consts,
+                )
             return out["forces"], out["energy"], out["virial"]
 
         def energy_fn(positions, cell):
-            return mtp_energy_window(
-                self.model, positions, cell, swl, sorted_io=sorted_io, **consts
-            )
+            with span("mtp.energy"):
+                return mtp_energy_window(
+                    self.model, positions, cell, swl, sorted_io=sorted_io, **consts
+                )
 
         fn.energy_fn = energy_fn
         return fn
@@ -124,8 +134,7 @@ class Simulation:
     def grid_for(self, cell) -> tuple:
         """The bin grid for a cell: (cutoff + skin) * grid_margin per bin.
         Reads the cell to the host."""
-        return grid_shape(cell.detach().cpu().numpy(),
-                          (self.model.cutoff + self.skin) * self.grid_margin)
+        return grid_shape(read_cell(cell), (self.model.cutoff + self.skin) * self.grid_margin)
 
     def rebuild(self, state: MDState, *, grid: tuple, max_neighbors: int):
         return build_sorted_neighbor_list(
@@ -181,21 +190,22 @@ class Simulation:
         permutation-equivariant). Force-only steps; the energy (K4) runs
         once at the end of the block. Returns (state, aux, stale) with
         `state` back in user order."""
-        force_fn = self.force_fn_window(
-            nl, state.types, self._virial_for(kw["ensemble"]),
-            sorted_io=True, compute_energy=False,
-        )
-        state = self._permute_state(state, nl.order)
-        if refresh:
-            state = itg._with_forces(state, force_fn)
-        state, aux, stale = self._scan_steps(
-            state, aux, force_fn, ref_positions=nl.reference_positions[nl.order],
-            ref_cell=nl.reference_cell, **kw,
-        )
-        state = dataclasses.replace(
-            state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
-        )
-        return self._permute_state(state, nl.inv_order), aux, stale
+        with span("md.steps"):
+            force_fn = self.force_fn_window(
+                nl, state.types, self._virial_for(kw["ensemble"]),
+                sorted_io=True, compute_energy=False,
+            )
+            state = self._permute_state(state, nl.order)
+            if refresh:
+                state = itg._with_forces(state, force_fn)
+            state, aux, stale = self._scan_steps(
+                state, aux, force_fn, ref_positions=nl.reference_positions[nl.order],
+                ref_cell=nl.reference_cell, **kw,
+            )
+            state = dataclasses.replace(
+                state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
+            )
+            return self._permute_state(state, nl.inv_order), aux, stale
 
     def _scan_steps(
         self, state, aux, force_fn, *, ensemble, n_steps, dt, temperature, pressure,
@@ -243,14 +253,16 @@ class Simulation:
         rows = torch.arange(state.n_atoms, device=state.positions.device)
         stale = torch.zeros((), dtype=torch.bool, device=state.positions.device)
         for _ in range(n_steps):
-            state, aux = step(state, aux)
-            if ensemble not in _CONSTANT_CELL:
-                scaled_ref, shrink = geometry(state.cell)
-            d = state.positions - scaled_ref
-            d2 = torch.sum(d * d, dim=-1)
-            m1 = torch.max(d2)
-            m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
-            stale = stale | (torch.sqrt(m1) + torch.sqrt(m2) + shrink > self.skin)
+            with span("md.integrate"):
+                state, aux = step(state, aux)
+            with span("md.verlet_check"):
+                if ensemble not in _CONSTANT_CELL:
+                    scaled_ref, shrink = geometry(state.cell)
+                d = state.positions - scaled_ref
+                d2 = torch.sum(d * d, dim=-1)
+                m1 = torch.max(d2)
+                m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
+                stale = stale | (torch.sqrt(m1) + torch.sqrt(m2) + shrink > self.skin)
         return state, aux, stale
 
     def steps(
@@ -303,7 +315,7 @@ class Simulation:
         _check_ensemble(ensemble)
         if aux is None:
             aux = _default_aux(ensemble, state)
-        check_cell(state.cell.detach().cpu().numpy(), self.model.cutoff + self.skin)
+        check_cell(read_cell(state.cell), self.model.cutoff + self.skin)
         grid = self.grid_for(state.cell)
         kw = dict(ensemble=ensemble, dt=dt, temperature=temperature, pressure=pressure,
                   tdamp=tdamp, pdamp=pdamp)
@@ -315,13 +327,14 @@ class Simulation:
         nl = None
         while done < n_steps:
             k = min(self.steps_per_rebuild, n_steps - done)
-            nl = self.rebuild(state, grid=grid, max_neighbors=self.max_neighbors)
-            overflow = overflow | nl.overflow
-            if first:
-                state = self.refresh_forces(state, nl, ensemble=ensemble)
-                first = False
-            state, aux, stale = self.steps(state, aux, nl, n_steps=k, **kw)
-            stale_any = stale_any | stale
+            with span("md.block", _block_args(done, self.max_neighbors, k)):
+                nl = self.rebuild(state, grid=grid, max_neighbors=self.max_neighbors)
+                overflow = overflow | nl.overflow
+                if first:
+                    state = self.refresh_forces(state, nl, ensemble=ensemble)
+                    first = False
+                state, aux, stale = self.steps(state, aux, nl, n_steps=k, **kw)
+                stale_any = stale_any | stale
             done += k
         flags = RunFlags(overflow=overflow, stale=stale_any)
         if return_nl:
@@ -357,13 +370,15 @@ class Simulation:
         if aux is None:
             aux = _default_aux(ensemble, state)
         flag = torch.zeros((), dtype=torch.bool, device=state.positions.device)
-        for _ in range(n_blocks):
-            state, aux, ovf, stale = self.block(
-                state, aux, grid=grid, max_neighbors=max_neighbors, ensemble=ensemble,
-                n_steps=steps_per_block, dt=dt, temperature=temperature,
-                pressure=pressure, tdamp=tdamp, pdamp=pdamp,
-            )
-            flag = flag | ovf | stale
+        for b in range(n_blocks):
+            with span("md.block", _block_args(b * steps_per_block, max_neighbors,
+                                              steps_per_block)):
+                state, aux, ovf, stale = self.block(
+                    state, aux, grid=grid, max_neighbors=max_neighbors, ensemble=ensemble,
+                    n_steps=steps_per_block, dt=dt, temperature=temperature,
+                    pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+                )
+                flag = flag | ovf | stale
         return state, aux, flag
 
     def run(
@@ -389,7 +404,8 @@ class Simulation:
         multiple of 8); at J >= 1024 it raises (not a list-width problem).
         On staleness it is retried with `steps_per_rebuild` halved; at 1 it
         raises (the system diverges or the skin is too small). Both changes
-        stay on this Simulation.
+        stay on this Simulation, and each discarded block counts in
+        ``retries``.
 
         `observer(state)` is called after every accepted block (host side:
         thermo output, dumps, hooks). `refresh=False` trusts the incoming
@@ -401,16 +417,19 @@ class Simulation:
         _check_ensemble(ensemble)
         if aux is None:
             aux = _default_aux(ensemble, state)
-        check_cell(state.cell.detach().cpu().numpy(), self.model.cutoff + self.skin)
+        check_cell(read_cell(state.cell), self.model.cutoff + self.skin)
         done = 0
         while done < n_steps:
             k = min(self.steps_per_rebuild, n_steps - done)
-            new_state, new_aux, overflow, stale = self.block(
-                state, aux, grid=self.grid_for(state.cell), max_neighbors=self.max_neighbors,
-                ensemble=ensemble, n_steps=k, dt=dt, temperature=temperature,
-                pressure=pressure, tdamp=tdamp, pdamp=pdamp, refresh=refresh,
-            )
-            overflow, stale = torch.stack([overflow, stale]).tolist()
+            grid = self.grid_for(state.cell)
+            with span("md.block", _block_args(done, self.max_neighbors, k)):
+                new_state, new_aux, overflow, stale = self.block(
+                    state, aux, grid=grid, max_neighbors=self.max_neighbors,
+                    ensemble=ensemble, n_steps=k, dt=dt, temperature=temperature,
+                    pressure=pressure, tdamp=tdamp, pdamp=pdamp, refresh=refresh,
+                )
+            with span("md.read_flags"):
+                overflow, stale = torch.stack([overflow, stale]).tolist()
             if overflow:
                 if self.max_neighbors >= 1024:
                     raise RuntimeError(
@@ -421,6 +440,7 @@ class Simulation:
                     )
                 grown = int(self.max_neighbors * 1.5) + 8
                 self.max_neighbors = -(-grown // 8) * 8
+                self.retries["overflow"] += 1
                 continue
             if stale:
                 if self.steps_per_rebuild <= 1:
@@ -431,6 +451,7 @@ class Simulation:
                         "is too small: check dt/forces or increase skin."
                     )
                 self.steps_per_rebuild = max(1, self.steps_per_rebuild // 2)
+                self.retries["stale"] += 1
                 continue
             state, aux = new_state, new_aux
             done += k
@@ -445,6 +466,20 @@ class Simulation:
         from mtp_tpu_torch.md.minimize import fire_minimize
 
         return fire_minimize(self, state, **kw)
+
+
+def read_cell(cell) -> np.ndarray:
+    """The cell as a host array: a read that waits for the device (span
+    ``md.read_cell``)."""
+    with span("md.read_cell"):
+        return cell.detach().cpu().numpy()
+
+
+def _block_args(first: int, max_neighbors: int, n_steps: int) -> str:
+    """The ``md.block`` span's arguments: the block's first step within the
+    call, its list width J and its steps (a retried block repeats its first
+    step)."""
+    return f"first={first} J={max_neighbors} steps={n_steps}"
 
 
 def _default_aux(ensemble, state):

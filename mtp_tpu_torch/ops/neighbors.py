@@ -34,6 +34,7 @@ from mtp_tpu_torch.ops.window_disp import (
     inverse_cell,
     minimum_image,
 )
+from mtp_tpu_torch.utils.tracing import span
 
 # center rows per candidate pass: bounds the (rows, ~27 x bin capacity)
 # candidate arrays to a few hundred MB at 32k atoms
@@ -147,92 +148,111 @@ def build_neighbor_list(
     drop a pair's second image. The JAX package checks only the first kind
     (``ops/neighbors.py:163-168``) and drops such pairs without a flag.
     """
+    with span("nl.build"):
+        return _build_neighbor_list(
+            positions, cell, cutoff, max_neighbors=max_neighbors, grid=grid,
+            bin_capacity=bin_capacity, real=real, centers=centers,
+            include_self_image=include_self_image,
+        )
+
+
+def _build_neighbor_list(positions, cell, cutoff, *, max_neighbors, grid, bin_capacity=None,
+                         real=None, centers=None, include_self_image=False):
+    """:func:`build_neighbor_list` inside an open ``nl.build`` span: the bin
+    sort and cell table (``nl.sort``), the row phases and row sort
+    (``nl.rows``), the mirror (``nl.mirror``)."""
     n = positions.shape[0]
     nc = n if centers is None else int(centers)
     dev = positions.device
     gx, gy, gz = grid
     ncells = gx * gy * gz
-    inv_cell = inverse_cell(cell)
-    bin3, bin_id = _bins(positions, inv_cell, grid)
-    if real is not None:
-        bin_id = torch.where(real, bin_id, ncells)  # the trash bin
-
-    # the grid is static but the cell is a run-time value: flag any binned
-    # dimension whose bin width has shrunk below the cutoff, and any
-    # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
-    # bound); relative epsilon: commensurate boxes have width/g == cutoff
-    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
-    geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for a, g in enumerate(grid):
-        geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
-
-    order = torch.argsort(bin_id, stable=True)
-    sorted_bin = bin_id[order]
-    cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
-    nbins = ncells + (real is not None)
-    counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
-        0, bin_id, torch.ones_like(bin_id)
-    )
-    cell_overflow = torch.max(counts[:ncells]) > cap
-    start = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n, device=dev) - start[sorted_bin]
-    table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
-    # on bin overflow, clipped writes collide (the flag is already set; the
-    # trash bin's collisions are harmless, no stencil reads it)
-    table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
-
-    def offs(g):
-        return torch.arange(g, device=dev) if g < 3 else torch.arange(-1, 2, device=dev)
-
-    stencil = torch.cartesian_prod(offs(gx), offs(gy), offs(gz)).reshape(-1, 3)  # (K, 3)
-    cut2 = cutoff * cutoff
-    big = torch.iinfo(torch.int64).max
-
-    def row_phase(rows):
-        """Distance filter and compaction for a block of center rows."""
-        b = rows.shape[0]
-        nb = [
-            torch.remainder(bin3[rows, None, a] + stencil[None, :, a], g)
-            for a, g in enumerate(grid)
-        ]
-        nb_id = (nb[0] * gy + nb[1]) * gz + nb[2]
-        cand = table[nb_id].reshape(b, -1)  # (b, K*cap)
-        valid = cand >= 0
-        safe = torch.where(valid, cand, 0)
-        cpos = positions[safe]  # (b, W, 3)
-        dc = [cpos[..., a] - positions[rows, a][:, None] for a in range(3)]
-        dr = image_components(dc, cell, inv_cell)
-        d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
-        self_row = safe == rows[:, None]
-        keep = valid & (d2 <= cut2) & ~self_row
-        if include_self_image:
-            keep = keep | (valid & (d2 <= cut2) & self_row & (d2 > 1e-12))
+    with span("nl.sort"):
+        inv_cell = inverse_cell(cell)
+        bin3, bin_id = _bins(positions, inv_cell, grid)
         if real is not None:
-            # candidates are real by construction (the stencil never reads
-            # the trash bin): only the centers need the mask
-            keep = keep & real[rows][:, None]
-        # kept candidates to the front, ascending by atom index
-        key = torch.sort(torch.where(keep, safe, big), dim=1).values
-        if key.shape[1] < max_neighbors:
-            pad = torch.full((b, max_neighbors - key.shape[1]), big, device=dev)
-            key = torch.cat([key, pad], dim=1)
-        key = key[:, :max_neighbors]
-        idx = torch.where(key == big, rows[:, None], key)
-        return idx.to(torch.int32), torch.max(torch.sum(keep, dim=1))
+            bin_id = torch.where(real, bin_id, ncells)  # the trash bin
 
-    rows_all = torch.arange(nc, device=dev)
-    parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, nc, _ROW_BLOCK)]
-    idx = torch.cat([p[0] for p in parts], dim=0)
-    max_cnt = torch.max(torch.stack([p[1] for p in parts]))
-    nbr_overflow = max_cnt > max_neighbors
+        # the grid is static but the cell is a run-time value: flag any binned
+        # dimension whose bin width has shrunk below the cutoff, and any
+        # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
+        # bound); relative epsilon: commensurate boxes have width/g == cutoff
+        widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
+        geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        for a, g in enumerate(grid):
+            geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
 
-    idx = torch.sort(idx, dim=1).values  # row-sorted storage = (src, dst) order
+        order = torch.argsort(bin_id, stable=True)
+        sorted_bin = bin_id[order]
+        cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
+        nbins = ncells + (real is not None)
+        counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
+            0, bin_id, torch.ones_like(bin_id)
+        )
+        cell_overflow = torch.max(counts[:ncells]) > cap
+        start = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(n, device=dev) - start[sorted_bin]
+        table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
+        # on bin overflow, clipped writes collide (the flag is already set; the
+        # trash bin's collisions are harmless, no stencil reads it)
+        table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
+
+    with span("nl.rows"):
+        def offs(g):
+            return torch.arange(g, device=dev) if g < 3 else torch.arange(-1, 2, device=dev)
+
+        stencil = torch.cartesian_prod(offs(gx), offs(gy), offs(gz)).reshape(-1, 3)  # (K, 3)
+        cut2 = cutoff * cutoff
+        big = torch.iinfo(torch.int64).max
+
+        def row_phase(rows):
+            """Distance filter and compaction for a block of center rows."""
+            b = rows.shape[0]
+            nb = [
+                torch.remainder(bin3[rows, None, a] + stencil[None, :, a], g)
+                for a, g in enumerate(grid)
+            ]
+            nb_id = (nb[0] * gy + nb[1]) * gz + nb[2]
+            cand = table[nb_id].reshape(b, -1)  # (b, K*cap)
+            valid = cand >= 0
+            safe = torch.where(valid, cand, 0)
+            cpos = positions[safe]  # (b, W, 3)
+            dc = [cpos[..., a] - positions[rows, a][:, None] for a in range(3)]
+            dr = image_components(dc, cell, inv_cell)
+            d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+            self_row = safe == rows[:, None]
+            keep = valid & (d2 <= cut2) & ~self_row
+            if include_self_image:
+                keep = keep | (valid & (d2 <= cut2) & self_row & (d2 > 1e-12))
+            if real is not None:
+                # candidates are real by construction (the stencil never reads
+                # the trash bin): only the centers need the mask
+                keep = keep & real[rows][:, None]
+            # kept candidates to the front, ascending by atom index
+            key = torch.sort(torch.where(keep, safe, big), dim=1).values
+            if key.shape[1] < max_neighbors:
+                pad = torch.full((b, max_neighbors - key.shape[1]), big, device=dev)
+                key = torch.cat([key, pad], dim=1)
+            key = key[:, :max_neighbors]
+            idx = torch.where(key == big, rows[:, None], key)
+            return idx.to(torch.int32), torch.max(torch.sum(keep, dim=1))
+
+        rows_all = torch.arange(nc, device=dev)
+        parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, nc, _ROW_BLOCK)]
+        idx = torch.cat([p[0] for p in parts], dim=0)
+        max_cnt = torch.max(torch.stack([p[1] for p in parts]))
+        nbr_overflow = max_cnt > max_neighbors
+
+        idx = torch.sort(idx, dim=1).values  # row-sorted storage = (src, dst) order
+    mirror = None
+    if centers is None:
+        with span("nl.mirror"):
+            mirror = mirror_permutation(idx)
     return NeighborList(
         idx=idx,
         overflow=cell_overflow | nbr_overflow | geom_overflow,
         reference_positions=positions,
         reference_cell=cell,
-        mirror=mirror_permutation(idx) if centers is None else None,
+        mirror=mirror,
     )
 
 
@@ -307,15 +327,17 @@ def build_sorted_neighbor_list(
     (the halo and slab padding of the sharded path) sort last, into the
     trash bin, and are excluded as centers and as neighbors."""
     gx, gy, gz = grid
-    _, bin_id = _bins(positions, inverse_cell(cell), grid)
-    if real is not None:
-        bin_id = torch.where(real, bin_id, gx * gy * gz)  # trash: sorts last
-    order = torch.argsort(bin_id, stable=True)
-    inv_order = torch.argsort(order)
-    nl = build_neighbor_list(
-        positions[order], cell, cutoff, max_neighbors=max_neighbors, grid=grid,
-        bin_capacity=bin_capacity, real=None if real is None else real[order],
-    )
+    with span("nl.build"):
+        with span("nl.sort"):
+            _, bin_id = _bins(positions, inverse_cell(cell), grid)
+            if real is not None:
+                bin_id = torch.where(real, bin_id, gx * gy * gz)  # trash: sorts last
+            order = torch.argsort(bin_id, stable=True)
+            inv_order = torch.argsort(order)
+        nl = _build_neighbor_list(
+            positions[order], cell, cutoff, max_neighbors=max_neighbors, grid=grid,
+            bin_capacity=bin_capacity, real=None if real is None else real[order],
+        )
     return SortedNeighborList(
         order=order,
         inv_order=inv_order,

@@ -1,7 +1,7 @@
 """Where the main path's time goes on the card (counterpart of
 ``mtp_tpu/utils/prof.py``).
 
-    python -m mtp_tpu_torch.utils.prof [--reps 20] [--blocks 2] [--out DIR] [--al]
+    python -m mtp_tpu_torch.utils.prof [--reps 20] [--blocks 2] [--out DIR]
                                        [--ensemble {nve,nvt,langevin,npt,npt-tri}]
                                        [--virial] [--fit]
 
@@ -25,17 +25,6 @@ the warm-up, with the virial tallied every step), the integrator state
 carried from block to block. ``--virial`` tallies the virial every step in
 the other ensembles too, so that two runs, with and without it, give what
 the tally costs.
-
-With ``--al`` it runs ``chip_smoke.py`` phase 7's configuration instead (an
-MVS from three perturbed 4,000-atom boxes; ``run_with_extrapolation`` for
-120 steps graded every 30 against 120 steps of plain ``run_async``, each
-warmed up once) and prints, for three untraced rounds of the pair, each
-run's host time; then, for one traced window of each, its host time,
-device busy time, idle share, kernel launches, and the CUDA runtime calls
-that wait for the device (synchronisations and copies) with their host
-time, from the Chrome traces it writes to --out; then the three untraced
-rounds again, to show what an earlier profiler session in the same
-process does to them.
 
 With ``--fit`` it profiles training instead, at ``chip_smoke.py`` phase 9's
 configuration (``train.fit.training_set``: 96 configurations of the
@@ -181,7 +170,6 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="fcc cells per side")
     ap.add_argument("--blocks", type=int, default=2, help="30-step blocks measured")
     ap.add_argument("--out", default="build/prof", help="trace directory")
-    ap.add_argument("--al", action="store_true", help="AL path against pure MD")
     ap.add_argument("--ensemble", default="nve",
                     choices=("nve", "nvt", "langevin", "npt", "npt-tri"),
                     help="ensemble of the measured blocks")
@@ -199,8 +187,6 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    if args.al:
-        return al_main(args, dev, card)
     if args.fit:
         return fit_main(args, dev, card)
     model = MTPModel.from_data(make_mtp(16, seed=0), device=dev, dtype=torch.float32)
@@ -285,112 +271,6 @@ def main(argv=None) -> int:
         "kernels": [dict(name=k[:100], ms_per_step=ms, launches_per_step=c)
                     for ms, c, k in rows[:25]],
     }))
-    return 0
-
-
-def _host_waits(trace_events):
-    """{CUDA runtime call: (count, host ms)} of the calls that wait for the
-    device or move data (synchronisations, copies), and the kernel launch
-    count, from one Chrome trace."""
-    waits, launches = {}, 0
-    for e in trace_events:
-        if e.get("ph") != "X" or e.get("cat") not in ("cuda_runtime", "cuda_driver"):
-            continue
-        name = e.get("name", "")
-        if "Launch" in name:
-            launches += 1
-        elif "Synchronize" in name or "Memcpy" in name:
-            c, ms = waits.get(name, (0, 0.0))
-            waits[name] = (c + 1, ms + float(e["dur"]) / 1e3)
-    return waits, launches
-
-
-def al_main(args, dev, card) -> int:
-    """The --al mode (module docstring)."""
-    import numpy as np
-    import torch
-
-    from mtp_tpu_torch.al.driver import ExtrapolationMonitor, run_with_extrapolation
-    from mtp_tpu_torch.al.grades import candidate_vectors
-    from mtp_tpu_torch.al.maxvol import build_mvs
-    from mtp_tpu_torch.io.basis_gen import make_mtp
-    from mtp_tpu_torch.md.simulation import Simulation, make_lattice
-    from mtp_tpu_torch.md.state import init_state, thermalize
-    from mtp_tpu_torch.models.mtp import MTPModel
-    from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
-
-    m = make_mtp(16, species_count=1, seed=0)
-    pos4, types4, cell4 = make_lattice("fcc", 4.0, (10, 10, 10))
-    m64 = MTPModel.from_data(m, device=dev, dtype=torch.float64)
-    c4 = torch.as_tensor(cell4, dtype=torch.float64, device=dev)
-    t4 = torch.as_tensor(types4, dtype=torch.int32, device=dev)
-    rng = np.random.default_rng(1)
-    rows = []
-    for sigma in (0.02, 0.06, 0.1):
-        p = torch.as_tensor(pos4 + rng.normal(0.0, sigma, pos4.shape), device=dev)
-        nl = build_neighbor_list(p, c4, 5.0, max_neighbors=64, grid=grid_shape(cell4, 5.0))
-        rows.append(candidate_vectors(m64, p, t4, nl.idx, c4)[0].cpu().numpy())
-    m.mvs = build_mvs(np.concatenate(rows), mode="neighborhood")
-    model = MTPModel.from_data(m, device=dev, dtype=torch.float32)
-
-    pos, types, cell = make_lattice("fcc", 4.0, (args.reps,) * 3)
-    n = len(pos)
-    st = init_state(pos, types, np.full(n, 58.693), cell, device=dev)
-    st = thermalize(torch.Generator(device=dev).manual_seed(5), st, 300.0)
-    eq = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
-                    compute_virial=False)
-    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=30,
-                     compute_virial=False)
-    st, _, fl = eq.run_async(st, 60)
-    mon = ExtrapolationMonitor(model)
-    runs = {
-        "AL": lambda s, k: run_with_extrapolation(sim, mon, s, k, al_every=30,
-                                                  ensemble="nve", dt=0.001),
-        "MD": lambda s, k: sim.run_async(s, k, dt=0.001)[0],
-    }
-    for fn in runs.values():
-        st = fn(st, 30)  # warm-up
-    print(f"prof --al: {card}; {n} atoms, level 16, fp32, J=64, 120 steps, "
-          f"grades every 30 (AL)")
-
-    def rounds(st, when):
-        for rnd in range(3):
-            line = []
-            for name, fn in runs.items():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st = fn(st, 120)
-                torch.cuda.synchronize()
-                line.append(f"{name} {(time.perf_counter() - t0) * 1e3:.3f} ms")
-            print(f"prof --al: {when}, round {rnd}, host time: " + ", ".join(line))
-        return st
-
-    st = rounds(st, "before the traces")
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    report = {"card": card, "atoms": n}
-    for name, fn in runs.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with trace() as prof:
-            st = fn(st, 120)
-            torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        path = out / f"al_{name}_trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-        span_us, busy_us = device_window(events)
-        waits, launches = _host_waits(events)
-        print(f"prof --al: traced {name}: host {host_ms:.3f} ms, device span "
-              f"{span_us / 1e3:.3f} ms, busy {busy_us / 1e3:.3f} ms, idle share "
-              f"{1.0 - busy_us / span_us:.4f}, {launches} launches")
-        for call, (count, ms) in sorted(waits.items(), key=lambda kv: -kv[1][1]):
-            print(f"prof --al:   {call}: {count} calls, {ms:.3f} ms on the host")
-        report[name] = dict(host_ms=host_ms, span_ms=span_us / 1e3, busy_ms=busy_us / 1e3,
-                            launches=launches, waits=waits)
-    # the same rounds once the profiler has run in this process
-    rounds(st, "after the traces")
-    print(json.dumps(report))
     return 0
 
 

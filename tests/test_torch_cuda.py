@@ -24,6 +24,7 @@ plain path (the oracle) bit-equal between runs; two training steps on the
 card against the CPU 1e-9 relative in losses and coefficients.
 """
 
+import json
 import re
 
 import numpy as np
@@ -141,6 +142,45 @@ def test_window_geometry_is_one_launch(dev):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert [e.name for e in kernels] == [kernels[0].name] and "window_geometry" in kernels[0].name
+
+
+def test_force_spans_share_the_kernels_clock(dev, tmp_path):
+    """The port's spans and the kernels lie on the profiler's one clock:
+    every kernel launched inside an ``mtp.forces`` span starts no earlier
+    than the span and ends no earlier than its own launch call."""
+    model = MTPModel.from_data(make_mtp(8, seed=1), device=dev, dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6))
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=5,
+                     compute_virial=False)
+    sim.run(st, 5, dt=0.001)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sim.run(st, 10, dt=0.001)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    forces = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e["name"] == "mtp.forces"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    checked = 0
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") != "kernel" or corr not in launches:
+            continue
+        t = launches[corr]
+        span = next((s for s in forces if s[0] <= t < s[1]), None)
+        if span is None:
+            continue
+        assert e["ts"] >= span[0] and e["ts"] + e["dur"] >= t, (e["name"], span, t)
+        checked += 1
+    assert len(forces) == 12  # 10 steps and a refresh in each of the 2 blocks
+    assert checked >= 3 * len(forces)  # K1, K2 and K3 at least
 
 
 @pytest.mark.parametrize("level,species", [(8, 1), (8, 2), (16, 2), (16, 1)])
