@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device: name, ``nvidia-smi`` name and power limit, TF32 pinned off.
-2. Build: nvcc builds the seven CUDA kernels from ``mtp_tpu_torch/csrc``.
+2. Build: nvcc builds the eight CUDA kernels from ``mtp_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on an 864-atom two-species
    level-16 fcc box (positions jittered from a seed), in fp32 on the card
    (K1's displacements and mask bit for bit); then the fp32 kernel path
@@ -30,6 +30,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    right after phase 7: a profiler session slows the host-bound runs that
    follow it in the same process, and phase 7 times two of them against
    each other; a window that loses kernel events fails the run.
+5b. The neighbor list's row phase (K8) on the bin-sorted fcc box at a =
+   3.8 A of 32,000 and of 131,072 atoms (cutoff + skin 5.6 A, J = 64): its
+   rows and largest count bit-equal to its plain twin's, and a whole sorted
+   build with K8 bit-equal (rows, mirror, order) to one with the twin; its ms
+   and the twin's, its bound (45 operations a candidate test; every input
+   and output byte once) and share of it (device ms from the stage split),
+   one launch per build, and the build's ms and peak device memory with K8
+   and with the twin.
 6. Active-learning kernels on the phase-3 box, with an MVS state built by
    ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
    K5 against its plain twin on every output, K6 and K7 (through the autograd
@@ -143,7 +151,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    size. The phase must take under a minute.
 
 Prints one JSON line of the ensembles' numbers, one of the sharded path,
-one of the long box, one of training and the gate, then one of all seven
+one of the long box, one of training and the gate, then one of all eight
 kernels (with their launch counts in phases 11 and 12 and their errors on
 the rank rows of 11b and 12b), before the last line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -601,6 +609,114 @@ def mvs_from(model64, boxes, cell, types, cutoff):
     return build_mvs(np.concatenate(rows), mode="neighborhood")
 
 
+# phase 5b: the row phase's boxes (jittered fcc at a = 3.8 A, about the
+# benchmark's zero-pressure lattice; cutoff + skin 5.6 A, J = 64) and the
+# operations of one candidate test: 3 subtractions, two 3x3 products (30), 3
+# rint and subtractions, |d|^2 (5) and the test, as K1's per pair
+ROWS_BOXES = {"32k": (20, 20, 20), "131k": (32, 32, 32)}
+ROWS_CUT, ROWS_J, ROWS_OPS_PER_TEST = 5.6, 64, 45
+
+
+def rows_work(n, j, tests, table):
+    """(operations, bytes) of one K8 call: every candidate test once; the
+    positions, bin coordinates, cell table, bin counts and both cells read
+    once, the rows and the count written once."""
+    return (ROWS_OPS_PER_TEST * tests,
+            12 * n + 24 * n + 8 * table.numel() + 8 * table.shape[0] + 2 * 36 + 4 * n * j + 4)
+
+
+def neighbor_rows_phase(dev, card):
+    """Phase 5b: K8 against its plain twin on the MD path's inputs (the
+    bin-sorted box) at 32,000 and 131,072 atoms: rows and count bit-equal,
+    and whole sorted builds (rows, mirror, order, flag) with the kernel and
+    with the twin; K8's ms and the twin's (CUDA events), the builds' ms and
+    peak device memory above what was allocated before, K8 launches per
+    build. Returns ({tag: row}, {label: call} for `stage_ms`)."""
+    import torch
+
+    from mtp_tpu_torch.md.simulation import make_lattice
+    from mtp_tpu_torch.ops import neighbors as nbm
+
+    def build_peak(fn):
+        torch_sync()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch_sync()
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    rows, calls = {}, {}
+    for tag, reps in ROWS_BOXES.items():
+        pos, _, cell = make_lattice("fcc", 3.8, reps)
+        pos = pos + np.random.default_rng(SEED).normal(0.0, 0.1, pos.shape)
+        n = len(pos)
+        p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        c = torch.as_tensor(cell, dtype=torch.float32, device=dev)
+        grid = nbm.grid_shape(cell, ROWS_CUT)
+
+        def build():
+            return nbm.build_sorted_neighbor_list(p, c, ROWS_CUT, max_neighbors=ROWS_J,
+                                                  grid=grid)
+
+        nbm.K8.launches = nbm.K8.plain_calls = 0
+        got, peak = build_peak(build)
+        per_build = nbm.K8.launches
+        check(nbm.K8.plain_calls == 0, f"{tag}: the build with K8 called its plain twin")
+        kernel_rows = nbm.neighbor_rows
+        nbm.neighbor_rows = nbm.neighbor_rows_plain  # the builds with the plain twin
+        try:
+            want, plain_peak = build_peak(build)
+            plain_build_ms = time_ms(build, 3)
+        finally:
+            nbm.neighbor_rows = kernel_rows
+        build_ms = time_ms(build, 20)
+        check(not bool(got.overflow) and not bool(want.overflow), f"{tag} row-phase overflow")
+        same = (torch.equal(got.idx, want.idx) and torch.equal(got.mirror, want.mirror)
+                and torch.equal(got.order, want.order))
+        check(same, f"{tag}: the build with K8 differs from the build with its plain twin")
+
+        ps = p[got.order].contiguous()
+        inv, bin3, table, counts, _ = nbm._cell_table(ps, c, ROWS_CUT, grid, None, None)
+        args = (ps, bin3, table, counts, c, inv.contiguous(), grid, ROWS_CUT, ROWS_J, n)
+        idx, count = nbm.neighbor_rows(*args)
+        idx_p, count_p = nbm.neighbor_rows_plain(*args)
+        torch_sync()
+        check(torch.equal(idx, idx_p) and int(count) == int(count_p),
+              f"{tag}: K8's rows differ from its plain twin's")
+        check(torch.equal(idx, got.idx), f"{tag}: K8 alone differs from the build's rows")
+        # candidate tests: each row's stencil bins' atoms
+        per_bin = (table >= 0).sum(1)
+        offs = [torch.arange(g, device=dev) if g < 3 else torch.arange(-1, 2, device=dev)
+                for g in grid]
+        st = torch.cartesian_prod(*offs).reshape(-1, 3)
+        nb = [torch.remainder(bin3[:, None, a] + st[None, :, a], g) for a, g in enumerate(grid)]
+        tests = int(per_bin[(nb[0] * grid[1] + nb[1]) * grid[2] + nb[2]].sum())
+        ops, nbytes = rows_work(n, ROWS_J, tests, table)
+        t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms = time_ms(lambda: nbm.neighbor_rows(*args), 20)
+        plain_ms = time_ms(lambda: nbm.neighbor_rows_plain(*args), 3)
+        row = dict(
+            name=nbm.K8.name, route="cuda", source=nbm.K8.source, replaces=nbm.K8.replaces,
+            atoms=n, grid=list(grid), cap=table.shape[1], candidate_tests=tests,
+            max_count=int(count), launches_per_build=per_build, max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes", operations=ops,
+            bytes=nbytes, build_ms=build_ms, plain_build_ms=plain_build_ms,
+            build_peak_bytes=peak, plain_build_peak_bytes=plain_peak, library_ms=None,
+        )
+        print(f"  neighbor_rows {tag}: {n} atoms, grid {grid}, cap {table.shape[1]}, "
+              f"{tests} candidate tests, largest count {int(count)}: rows and count "
+              f"bit-equal to the plain twin, and the whole build's rows, mirror and order; "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"{per_build} launch per build; build {build_ms:.4f} ms (with the twin "
+              f"{plain_build_ms:.4f}), peak {peak:,} B (with the twin {plain_peak:,} B) on {card}")
+        check(per_build == 1, f"{tag}: K8 launched {per_build} times in one build")
+        rows[tag] = row
+        calls[f"neighbor_rows {tag}"] = lambda args=args: nbm.neighbor_rows(*args)
+    return rows, calls
+
+
 def al_kernel_phase(m2, p32, ty, c32, swl):
     """Phase 6 on the phase-3 box (`m2`, positions, types, cell, list)."""
     import torch
@@ -782,7 +898,7 @@ def al_path_phase(dev, card):
           f"{k5_warps}; of K6's basic stage {warps['basic']} and K7's tail {warps['tail']} "
           f"(float specialised {warps['float specialised']})")
     rows = []
-    for kern in kernels[4:]:
+    for kern in kernels[4:7]:  # K5-K7
         err, ms, plain_ms, dev_ms = res[kern.name]
         row = kernel_row(kern, counts[kern.name], err, ms, plain_ms, model, n, j, live)
         share = device_share(row, dev_ms)
@@ -1303,13 +1419,14 @@ def _gates(tag, n, e32, f32, w32, ref, phase="11 sharded"):
 def sharded_world_of_one(dev, card, m, model, state):
     """Phase 11a: ShardedSimulation.run_async on a world of one NCCL rank at
     the main path's width, beside Simulation.run_async from the same state,
-    in turns. Returns (report, launch counts of K1-K4)."""
+    in turns. Returns (report, launch counts of K1-K8 in its first sharded
+    run)."""
     import torch
     import torch.distributed as dist
 
-    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.kernels import all_kernels, main_path_kernels, reset_counts
     from mtp_tpu_torch.md.simulation import Simulation
-    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.ops.neighbors import K8, grid_shape
     from mtp_tpu_torch.parallel.comm import Comm, init_world
     from mtp_tpu_torch.parallel.domain import partition_slabs
     from mtp_tpu_torch.parallel.sharded_md import ShardedState
@@ -1321,7 +1438,7 @@ def sharded_world_of_one(dev, card, m, model, state):
                                                            "masses", "cell")]
     cell = np_state[4]
     w_cut = model.cutoff + 0.6
-    kernels = main_path_kernels()
+    kernels, on_path = all_kernels(), main_path_kernels() + [K8]
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(dev)
         init_world(0, 1, f"{tmp}/store", backend="nccl")
@@ -1355,7 +1472,7 @@ def sharded_world_of_one(dev, card, m, model, state):
             check(not bool(fl1) and not bool(fls.any()), "phase 11a flags set")
             print(f"[11a world of 1] NCCL, {n} atoms, level 16, fp32, J=64, {SHARDED_STEPS} NVE "
                   f"steps at spb 30: launches {launches}; plain calls {plain}")
-            for k in kernels:
+            for k in on_path:
                 check(launches[k.name] > 0, f"{k.name} was not launched on the sharded path")
                 check(plain[k.name] == 0, f"{k.name}'s plain version ran on the sharded path")
             pos_s, frc_s = outs.gather_all([outs.positions, outs.forces], comm)
@@ -1575,7 +1692,7 @@ def sharded_two_ranks(dev, card, m, al_model, state):
           f"atoms arrived by migration {[r['arrived'] for r in ranks]}, own after "
           f"{[r['own'] for r in ranks]}; launches {counts}; plain calls {plain}")
     for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
-                 "candidates_mega"):
+                 "candidates_mega", "neighbor_rows"):
         check(counts[name] > 0, f"{name} was not launched on 2 ranks")
         check(plain[name] == 0, f"{name}'s plain version ran on 2 ranks")
     errs = {name: max(r["kernel_errs"][name] for r in ranks) for name in ranks[0]["kernel_errs"]}
@@ -1633,7 +1750,7 @@ def sharded_phase(dev, card, m, model, state, al_model):
     b, lb, errs = sharded_two_ranks(dev, card, m, al_model, state)
     names = set(la) | set(lb)
     return dict(world_of_one=a, two_ranks=b), {
-        k: {"a": la.get(k, 0), "b": lb.get(k, 0)} for k in names}, errs
+        k: {"a": la.get(k), "b": lb.get(k)} for k in names}, errs
 
 
 # phase 12: 6 blocks of 10 steps from the fresh 300 K lattice (its first
@@ -1668,13 +1785,13 @@ def nvt_dx_limit(ref):
 def narrow_world_of_one(dev, card, m, model, state):
     """Phase 12a: the long box on a world of one NCCL rank through the
     row-gather API, NVE and NVT blocks beside the single-device run.
-    Returns (report, launch counts of K1-K4 in the NVE run)."""
+    Returns (report, launch counts of K1-K8 in the NVE run)."""
     import torch
     import torch.distributed as dist
 
-    from mtp_tpu_torch.kernels import main_path_kernels, reset_counts
+    from mtp_tpu_torch.kernels import all_kernels, main_path_kernels, reset_counts
     from mtp_tpu_torch.md.simulation import Simulation
-    from mtp_tpu_torch.ops.neighbors import grid_shape
+    from mtp_tpu_torch.ops.neighbors import K8, grid_shape
     from mtp_tpu_torch.parallel.comm import Comm, init_world
     from mtp_tpu_torch.parallel.domain import partition_slabs
     from mtp_tpu_torch.parallel.sharded_md import (
@@ -1688,7 +1805,7 @@ def narrow_world_of_one(dev, card, m, model, state):
     w_cut = model.cutoff + 0.6
     grid = grid_shape(cell, w_cut)
     k, blocks = NARROW["n_steps"], NARROW["blocks"]
-    kernels = main_path_kernels()
+    kernels, on_path = all_kernels(), main_path_kernels() + [K8]
     report = dict(atoms=n, grid=list(grid), steps=k * blocks, card=card)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(dev)
@@ -1728,7 +1845,7 @@ def narrow_world_of_one(dev, card, m, model, state):
                 torch_sync()
                 wall1 = time.perf_counter() - t0
                 check(not bool(torch.stack(flags).any()), f"phase 12a {ens} flags set")
-                for kk in kernels:
+                for kk in on_path:
                     check(launches[kk.name] > 0, f"{kk.name} was not launched on the long box")
                     check(plain[kk.name] == 0, f"{kk.name}'s plain version ran on the long box")
                 bit = all(torch.equal(getattr(s, a), getattr(ref, a)) for a in (
@@ -1903,7 +2020,7 @@ def narrow_two_ranks(dev, card, m, al_model, state):
           f"{ranks[0]['NE']}; atoms arrived {[r['arrived'] for r in ranks]}; launches {counts}; "
           f"plain calls {plain}")
     for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
-                 "candidates_mega"):
+                 "candidates_mega", "neighbor_rows"):
         check(counts[name] > 0, f"{name} was not launched on the long box's 2 ranks")
         check(plain[name] == 0, f"{name}'s plain version ran on the long box's 2 ranks")
     errs = {k: max(r["kernel_errs"][k] for r in ranks) for k in ranks[0]["kernel_errs"]}
@@ -2031,7 +2148,7 @@ def narrow_phase(dev, card, m, model, al_model):
     check(wall < 60.0, "phase 12 took a minute or more")
     names = set(la) | set(lb)
     return dict(world_of_one=a, two_ranks=b, accuracy_validation=av, seconds=wall), {
-        k: {"a": la.get(k, 0), "b": lb.get(k, 0)} for k in names}, errs
+        k: {"a": la.get(k), "b": lb.get(k)} for k in names}, errs
 
 
 def main() -> int:
@@ -2057,6 +2174,7 @@ def main() -> int:
         window_constants,
     )
     from mtp_tpu_torch.ops.neighbors import (
+        K8,
         build_neighbor_list,
         build_sorted_neighbor_list,
         grid_shape,
@@ -2141,8 +2259,10 @@ def main() -> int:
     state, _, fl, nl = sim.run_async(state, 210, dt=0.001, return_nl=True)
     torch_sync()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    plain = {k.name: k.plain_calls for k in kernels}
+    launches = {k.name: k.launches for k in kernels + [K8]}
+    plain = {k.name: k.plain_calls for k in kernels + [K8]}
+    # run_async rebuilds once a block
+    rebuilds = -(-60 // eq.steps_per_rebuild) - (-210 // sim.steps_per_rebuild)
     e1 = state.potential_energy + kinetic_energy(state)
     print(f"[4 main path] {n} atoms, level 16, fp32, J=64: 60 steps (spb 10) + 210 "
           f"steps (spb 30)")
@@ -2157,6 +2277,10 @@ def main() -> int:
     for k in kernels:
         check(k.launches > 0, f"{k.name} was not launched on the main path")
         check(k.plain_calls == 0, f"{k.name}'s plain version ran on the main path")
+    print(f"[4 main path] {K8.name}: {launches[K8.name]} launches for the run's {rebuilds} "
+          f"rebuilds, its plain twin {plain[K8.name]} calls")
+    check(launches[K8.name] == rebuilds, f"{K8.name} did not launch once per main-path rebuild")
+    check(plain[K8.name] == 0, f"{K8.name}'s plain twin ran on the main path")
     drift = (float(e1) - float(e0)) / n
     rate = n * 210 / wall
     print(f"[4 main path] E_tot drift over 210 steps: {drift:.3e} eV/atom; "
@@ -2170,6 +2294,10 @@ def main() -> int:
     steps = 60 + 210
     print(f"[5 kernels] {live:.0f} live pairs ({live / n:.2f} per atom); bound = max(bytes / "
           f"{PEAK_BYTES:.3g} B/s, fp32 operations / {PEAK_FLOPS:.3g} FLOP/s)")
+    print("[5b neighbor rows] K8 against its plain twin on the bin-sorted box, fp32, J=64, "
+          f"cutoff + skin {ROWS_CUT} A")
+    rows_k8, rows_calls = neighbor_rows_phase(dev, card)
+    stage_calls.update(rows_calls)
 
     # ---- 6. active-learning kernels, and the fp32 grade step vs float64
     al_kernel_phase(m2, p32, ty, c32, swl)
@@ -2226,11 +2354,22 @@ def main() -> int:
               f"{launches[k.name] / steps:.4f} launches per main-path step")
         rows.append(row)
     rows += rows7
+    for tag, row in rows_k8.items():
+        dev_ms = sum(ms for name, ms in stages[f"neighbor_rows {tag}"].items()
+                     if "neighbor_rows_kernel" in name)
+        share = device_share(row, dev_ms)
+        print(f"  neighbor_rows {tag}: {row['ms']:.4f} ms by CUDA events around the wrapper, "
+              f"{dev_ms:.4f} ms on the device (plain {row['plain_ms']:.4f} ms); bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {share} of the device time; "
+              f"{row['launches_per_build']} launch per rebuild")
+        row["main_path_launches"] = launches[K8.name]
+        row["main_path_rebuilds"] = rebuilds
+        rows.append(row)
     for row in rows:
-        row["sharded_launches"] = sharded_counts.get(row["name"], {"a": 0, "b": 0})
+        row["sharded_launches"] = sharded_counts.get(row["name"])
         # (b)'s kernel-vs-plain check on the rank rows; None off the path
         row["sharded_max_abs_err"] = sharded_errs.get(row["name"])
-        row["narrow_launches"] = narrow_counts.get(row["name"], {"a": 0, "b": 0})
+        row["narrow_launches"] = narrow_counts.get(row["name"])
         row["narrow_max_abs_err"] = narrow_errs.get(row["name"])
     print(card)
     print(json.dumps({"ensembles": ens_report}))

@@ -2,7 +2,8 @@
 
 Each kernel's wrapper lives beside its plain PyTorch twin in ``ops/``; this
 module only lists them: the main path's four in the order it runs them per
-step, the kernel active learning adds, and all seven.
+step, the kernel active learning adds, and all eight (the seven ports of the
+TPU kernels and the neighbor list's row phase).
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ def al_path_kernels():
 
 
 def all_kernels():
-    """K1-K7 in order: the main path's four, K5, and K6 basic_moments_fused
-    with its vjp K7 (the modular path of ``ops/fused_basic.py``)."""
+    """K1-K8 in order: the main path's four, K5, K6 basic_moments_fused with
+    its vjp K7 (the modular path of ``ops/fused_basic.py``), and K8
+    neighbor_rows (once per neighbor-list build, on every path)."""
     from mtp_tpu_torch.ops.fused_basic import K6, K7
+    from mtp_tpu_torch.ops.neighbors import K8
 
-    return main_path_kernels() + al_path_kernels() + [K6, K7]
+    return main_path_kernels() + al_path_kernels() + [K6, K7, K8]
 
 
 def reset_counts() -> None:

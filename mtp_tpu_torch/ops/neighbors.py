@@ -1,7 +1,10 @@
-"""Neighbor lists in plain PyTorch, on the tensors' device.
+"""Neighbor lists on the tensors' device.
 
 Port of ``mtp_tpu/ops/neighbors.py``: a periodic cell (bin) list built from
-sort and gather primitives. Every constant is made on the device or folded
+sort and gather primitives in plain PyTorch, and its row phase (each centre's
+stencil candidates, filtered and sorted) in one CUDA kernel on the card, K8
+(``csrc/neighbor_rows.cu``), with its plain twin :func:`neighbor_rows_plain`
+for CPU tensors. Every constant is made on the device or folded
 in as a Python number (a host-to-device copy from pageable memory would
 synchronise the stream), so a rebuild queues behind the step loop on the
 card without the host waiting for it.
@@ -23,6 +26,7 @@ padding (N_pad = N), since the CUDA kernels mask their ragged edge.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -34,11 +38,24 @@ from mtp_tpu_torch.ops.window_disp import (
     inverse_cell,
     minimum_image,
 )
+from mtp_tpu_torch.kernels._build import Kernel
 from mtp_tpu_torch.utils.tracing import span
 
-# center rows per candidate pass: bounds the (rows, ~27 x bin capacity)
-# candidate arrays to a few hundred MB at 32k atoms
+# center rows per candidate pass of the plain twin: bounds its (rows, ~27 x
+# bin capacity) candidate arrays to a few hundred MB at 32k atoms
 _ROW_BLOCK = 8192
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+K8 = Kernel(
+    name="neighbor_rows",
+    symbol="mtp_neighbor_rows",
+    source="mtp_tpu_torch/csrc/neighbor_rows.cu",
+    replaces="none: the row phase of mtp_tpu/ops/neighbors.py is XLA code",
+    argtypes=(_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double,
+              _I, _I, _P),
+)
 
 
 @dataclasses.dataclass
@@ -156,100 +173,168 @@ def build_neighbor_list(
         )
 
 
-def _build_neighbor_list(positions, cell, cutoff, *, max_neighbors, grid, bin_capacity=None,
-                         real=None, centers=None, include_self_image=False):
-    """:func:`build_neighbor_list` inside an open ``nl.build`` span: the bin
-    sort and cell table (``nl.sort``), the row phases and row sort
-    (``nl.rows``), the mirror (``nl.mirror``)."""
+def _cell_table(positions, cell, cutoff, grid, bin_capacity, real):
+    """The bin sort and cell table of a build: (inv_cell, bin3 (N, 3) int64,
+    table (bins, cap) int64 with -1 holes, each bin filled from slot 0 in
+    ascending atom order, counts (bins,) int64 atoms per bin (over cap on
+    overflow), and the bin-capacity and geometry flag)."""
     n = positions.shape[0]
-    nc = n if centers is None else int(centers)
     dev = positions.device
     gx, gy, gz = grid
     ncells = gx * gy * gz
-    with span("nl.sort"):
-        inv_cell = inverse_cell(cell)
-        bin3, bin_id = _bins(positions, inv_cell, grid)
+    inv_cell = inverse_cell(cell)
+    bin3, bin_id = _bins(positions, inv_cell, grid)
+    if real is not None:
+        bin_id = torch.where(real, bin_id, ncells)  # the trash bin
+
+    # the grid is static but the cell is a run-time value: flag any binned
+    # dimension whose bin width has shrunk below the cutoff, and any
+    # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
+    # bound); relative epsilon: commensurate boxes have width/g == cutoff
+    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
+    geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for a, g in enumerate(grid):
+        geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
+
+    order = torch.argsort(bin_id, stable=True)
+    sorted_bin = bin_id[order]
+    cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
+    nbins = ncells + (real is not None)
+    counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
+        0, bin_id, torch.ones_like(bin_id)
+    )
+    cell_overflow = torch.max(counts[:ncells]) > cap
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - start[sorted_bin]
+    table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
+    # on bin overflow, clipped writes collide (the flag is already set; the
+    # trash bin's collisions are harmless, no stencil reads it)
+    table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
+    return inv_cell, bin3, table, counts, cell_overflow | geom_overflow
+
+
+def neighbor_rows_plain(positions, bin3, table, counts, cell, inv_cell, grid, cutoff,
+                        max_neighbors, centers, real=None, include_self_image=False):
+    """Plain PyTorch twin of K8 (:func:`neighbor_rows`): the candidates of
+    each row's bin stencil, distance-filtered and sorted, in passes over
+    blocks of `_ROW_BLOCK` rows (each row's result is its own, whatever the
+    block). It reads a bin's filled slots from the table's holes, so
+    `counts` goes unread. Returns (idx, the largest kept count of a row)."""
+    K8.plain_calls += 1
+    dev = positions.device
+    gx, gy, gz = grid
+
+    def offs(g):
+        return torch.arange(g, device=dev) if g < 3 else torch.arange(-1, 2, device=dev)
+
+    stencil = torch.cartesian_prod(offs(gx), offs(gy), offs(gz)).reshape(-1, 3)  # (K, 3)
+    cut2 = cutoff * cutoff
+    big = torch.iinfo(torch.int64).max
+
+    def row_phase(rows):
+        """Distance filter and compaction for a block of center rows."""
+        b = rows.shape[0]
+        nb = [
+            torch.remainder(bin3[rows, None, a] + stencil[None, :, a], g)
+            for a, g in enumerate(grid)
+        ]
+        nb_id = (nb[0] * gy + nb[1]) * gz + nb[2]
+        cand = table[nb_id].reshape(b, -1)  # (b, K*cap)
+        valid = cand >= 0
+        safe = torch.where(valid, cand, 0)
+        cpos = positions[safe]  # (b, W, 3)
+        dc = [cpos[..., a] - positions[rows, a][:, None] for a in range(3)]
+        dr = image_components(dc, cell, inv_cell)
+        d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        self_row = safe == rows[:, None]
+        keep = valid & (d2 <= cut2) & ~self_row
+        if include_self_image:
+            keep = keep | (valid & (d2 <= cut2) & self_row & (d2 > 1e-12))
         if real is not None:
-            bin_id = torch.where(real, bin_id, ncells)  # the trash bin
+            # candidates are real by construction (the stencil never reads
+            # the trash bin): only the centers need the mask
+            keep = keep & real[rows][:, None]
+        # kept candidates to the front, ascending by atom index
+        key = torch.sort(torch.where(keep, safe, big), dim=1).values
+        if key.shape[1] < max_neighbors:
+            pad = torch.full((b, max_neighbors - key.shape[1]), big, device=dev)
+            key = torch.cat([key, pad], dim=1)
+        key = key[:, :max_neighbors]
+        idx = torch.where(key == big, rows[:, None], key)
+        return idx.to(torch.int32), torch.max(torch.sum(keep, dim=1))
 
-        # the grid is static but the cell is a run-time value: flag any binned
-        # dimension whose bin width has shrunk below the cutoff, and any
-        # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
-        # bound); relative epsilon: commensurate boxes have width/g == cutoff
-        widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
-        geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        for a, g in enumerate(grid):
-            geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
+    rows_all = torch.arange(centers, device=dev)
+    parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, centers, _ROW_BLOCK)]
+    idx = torch.cat([p[0] for p in parts], dim=0)
+    max_count = torch.max(torch.stack([p[1] for p in parts]))
+    idx = torch.sort(idx, dim=1).values  # row-sorted storage = (src, dst) order
+    return idx, max_count
 
-        order = torch.argsort(bin_id, stable=True)
-        sorted_bin = bin_id[order]
-        cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
-        nbins = ncells + (real is not None)
-        counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
-            0, bin_id, torch.ones_like(bin_id)
-        )
-        cell_overflow = torch.max(counts[:ncells]) > cap
-        start = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(n, device=dev) - start[sorted_bin]
-        table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
-        # on bin overflow, clipped writes collide (the flag is already set; the
-        # trash bin's collisions are harmless, no stencil reads it)
-        table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
 
+def neighbor_rows(positions, bin3, table, counts, cell, inv_cell, grid, cutoff, max_neighbors,
+                  centers, real=None, include_self_image=False):
+    """The row phase of a build: (idx (centers, J) int32, each row's kept
+    neighbours ascending and padded with its own index; the largest kept
+    count of a row, a device scalar). Inputs as :func:`_cell_table` makes
+    them. A CPU tensor goes to :func:`neighbor_rows_plain`, a CUDA tensor to
+    K8 (``csrc/neighbor_rows.cu``), one launch, or the wrapper raises."""
+    if positions.device.type == "cpu":
+        return neighbor_rows_plain(positions, bin3, table, counts, cell, inv_cell, grid,
+                                   cutoff, max_neighbors, centers, real, include_self_image)
+    n = positions.shape[0]
+    if positions.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != positions.dtype for t in (cell, inv_cell)):
+        raise TypeError("neighbor_rows kernel takes float32 or float64 positions, cell and "
+                        "inverse cell of one type")
+    if (any(t.dtype != torch.int64 for t in (bin3, table, counts))
+            or (real is not None and real.dtype != torch.bool)):
+        raise TypeError("neighbor_rows kernel takes int64 bin3, table and counts, and a bool "
+                        "real")
+    tensors = (positions, bin3, table, counts, cell, inv_cell) + (() if real is None else (real,))
+    if (positions.shape != (n, 3) or bin3.shape != (n, 3) or table.dim() != 2
+            or counts.shape != table.shape[:1] or cell.shape != (3, 3)
+            or inv_cell.shape != (3, 3)
+            or (real is not None and real.shape != (n,)) or not 0 <= centers <= n
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError("neighbor_rows kernel takes contiguous (N, 3) positions and bin3, a "
+                         "(bins, cap) table, (bins,) counts, (3, 3) cells, an (N,) real and "
+                         "centers <= N")
+    idx = torch.empty((centers, max_neighbors), dtype=torch.int32, device=positions.device)
+    max_count = torch.zeros((), dtype=torch.int32, device=positions.device)
+    K8.launch(
+        positions.data_ptr(), bin3.data_ptr(), table.data_ptr(), counts.data_ptr(),
+        None if real is None else real.data_ptr(), cell.data_ptr(), inv_cell.data_ptr(),
+        idx.data_ptr(), max_count.data_ptr(), centers, max_neighbors, table.shape[1],
+        *map(int, grid), cutoff * cutoff, int(include_self_image),
+        int(positions.dtype == torch.float64),
+        torch.cuda.current_stream(positions.device).cuda_stream,
+    )
+    return idx, max_count
+
+
+def _build_neighbor_list(positions, cell, cutoff, *, max_neighbors, grid, bin_capacity=None,
+                         real=None, centers=None, include_self_image=False):
+    """:func:`build_neighbor_list` inside an open ``nl.build`` span: the bin
+    sort and cell table (``nl.sort``), the row phase (``nl.rows``, K8 on the
+    card), the mirror (``nl.mirror``)."""
+    nc = positions.shape[0] if centers is None else int(centers)
+    with span("nl.sort"):
+        inv_cell, bin3, table, counts, table_overflow = _cell_table(
+            positions, cell, cutoff, grid, bin_capacity, real)
     with span("nl.rows"):
-        def offs(g):
-            return torch.arange(g, device=dev) if g < 3 else torch.arange(-1, 2, device=dev)
-
-        stencil = torch.cartesian_prod(offs(gx), offs(gy), offs(gz)).reshape(-1, 3)  # (K, 3)
-        cut2 = cutoff * cutoff
-        big = torch.iinfo(torch.int64).max
-
-        def row_phase(rows):
-            """Distance filter and compaction for a block of center rows."""
-            b = rows.shape[0]
-            nb = [
-                torch.remainder(bin3[rows, None, a] + stencil[None, :, a], g)
-                for a, g in enumerate(grid)
-            ]
-            nb_id = (nb[0] * gy + nb[1]) * gz + nb[2]
-            cand = table[nb_id].reshape(b, -1)  # (b, K*cap)
-            valid = cand >= 0
-            safe = torch.where(valid, cand, 0)
-            cpos = positions[safe]  # (b, W, 3)
-            dc = [cpos[..., a] - positions[rows, a][:, None] for a in range(3)]
-            dr = image_components(dc, cell, inv_cell)
-            d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
-            self_row = safe == rows[:, None]
-            keep = valid & (d2 <= cut2) & ~self_row
-            if include_self_image:
-                keep = keep | (valid & (d2 <= cut2) & self_row & (d2 > 1e-12))
-            if real is not None:
-                # candidates are real by construction (the stencil never reads
-                # the trash bin): only the centers need the mask
-                keep = keep & real[rows][:, None]
-            # kept candidates to the front, ascending by atom index
-            key = torch.sort(torch.where(keep, safe, big), dim=1).values
-            if key.shape[1] < max_neighbors:
-                pad = torch.full((b, max_neighbors - key.shape[1]), big, device=dev)
-                key = torch.cat([key, pad], dim=1)
-            key = key[:, :max_neighbors]
-            idx = torch.where(key == big, rows[:, None], key)
-            return idx.to(torch.int32), torch.max(torch.sum(keep, dim=1))
-
-        rows_all = torch.arange(nc, device=dev)
-        parts = [row_phase(rows_all[a : a + _ROW_BLOCK]) for a in range(0, nc, _ROW_BLOCK)]
-        idx = torch.cat([p[0] for p in parts], dim=0)
-        max_cnt = torch.max(torch.stack([p[1] for p in parts]))
-        nbr_overflow = max_cnt > max_neighbors
-
-        idx = torch.sort(idx, dim=1).values  # row-sorted storage = (src, dst) order
+        # inverse_cell's result is laid out transposed: the kernel reads rows
+        idx, max_count = neighbor_rows(
+            positions.contiguous(), bin3, table, counts, cell.contiguous(),
+            inv_cell.contiguous(), grid, cutoff, max_neighbors, nc,
+            None if real is None else real.contiguous(), include_self_image)
+        nbr_overflow = max_count > max_neighbors
     mirror = None
     if centers is None:
         with span("nl.mirror"):
             mirror = mirror_permutation(idx)
     return NeighborList(
         idx=idx,
-        overflow=cell_overflow | nbr_overflow | geom_overflow,
+        overflow=table_overflow | nbr_overflow,
         reference_positions=positions,
         reference_cell=cell,
         mirror=mirror,

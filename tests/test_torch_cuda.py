@@ -21,7 +21,10 @@ modular energy path) 5e-5 eV/A. An NPT block of 20 steps on the card against the
 on the CPU (the plain twins, fp32 too): positions 1e-4 A, the cell 1e-5 of
 its largest entry, the barostat strain rate 1e-3 of its value. The float64
 plain path (the oracle) bit-equal between runs; two training steps on the
-card against the CPU 1e-9 relative in losses and coefficients.
+card against the CPU 1e-9 relative in losses and coefficients. K8
+neighbor_rows bit-equal to its plain twin in rows, mirror and flag whenever
+no capacity overflows (the same IEEE operations in the same order), the flag
+alone under overflow.
 """
 
 import json
@@ -39,9 +42,10 @@ from mtp_tpu_torch.models.mtp import MTPModel, _window_geometry, window_constant
 from mtp_tpu_torch.ops import fused_basic as fb
 from mtp_tpu_torch.ops import fused_candidates as fc
 from mtp_tpu_torch.ops import fused_moments as fm
+from mtp_tpu_torch.ops import neighbors as nbm
 from mtp_tpu_torch.ops import window_disp as wd
 from mtp_tpu_torch.ops import window_giveback as wg
-from mtp_tpu_torch.ops.neighbors import build_sorted_neighbor_list, grid_shape
+from mtp_tpu_torch.ops.neighbors import build_neighbor_list, build_sorted_neighbor_list, grid_shape
 
 from _torch_spawn import World
 
@@ -450,6 +454,126 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     args = _inputs(model, pos_s, c, swl, k)
     with pytest.raises(ValueError):
         fm.pair_forces_mega(args[0], args[1].double(), *args[2:])
+
+
+def _rows_box(dev, reps, a=4.0, tilt=0.0, dtype=torch.float32, seed=0):
+    """A jittered fcc box (0.1 A) on the card; b tilted along x by `tilt` of a."""
+    pos, _, cell = make_lattice("fcc", a, reps)
+    cell = cell.copy()
+    cell[1, 0] = tilt * cell[0, 0]
+    pos = pos @ np.linalg.inv(np.diag(np.diag(cell))) @ cell
+    pos = pos + np.random.default_rng(seed).normal(0, 0.1, pos.shape)
+    return (torch.as_tensor(pos, dtype=dtype, device=dev),
+            torch.as_tensor(cell, dtype=dtype, device=dev), cell)
+
+
+# name: (reps, a, tilt, dtype, grid (None: grid_shape), J, sorted build, options, overflows)
+_ROWS_CASES = {
+    "fcc32k": ((20, 20, 20), 3.8, 0.0, torch.float32, None, 64, True, {}, False),
+    "alloy131k": ((32, 32, 32), 3.8, 0.0, torch.float32, None, 64, True, {}, False),
+    "triclinic": ((6, 6, 6), 4.0, 0.2, torch.float32, None, 64, False, {}, False),
+    "2-bin axes": ((6, 3, 3), 4.0, 0.0, torch.float32, None, 64, False, {}, False),
+    "1-bin axis": ((6, 6, 6), 4.0, 0.0, torch.float32, (1, 4, 4), 64, False, {}, False),
+    "real, trash rows": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 64, True, {"real": 7}, False),
+    "centers": ((6, 3, 3), 4.0, 0.1, torch.float32, None, 64, False,
+                {"real": 7, "centers": 200}, False),
+    "self image": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 64, False,
+                   {"include_self_image": True}, False),
+    "float64": ((6, 6, 6), 4.0, 0.2, torch.float64, None, 64, True, {}, False),
+    "float64 unsorted": ((8, 8, 8), 3.8, 0.0, torch.float64, None, 64, False, {}, False),
+    "J 104": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 104, True, {}, False),
+    "J overflows": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 40, True, {}, True),
+    "bin overflows": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 64, False,
+                      {"bin_capacity": 4}, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROWS_CASES))
+def test_neighbor_rows_kernel_matches_plain(dev, case, monkeypatch):
+    """A build with K8 against the same build with its plain twin on the
+    card: rows, mirror (and bin order) bit-equal and the flag equal; under
+    overflow the flag alone. The kernel launches once a build, the twin not."""
+    reps, a, tilt, dtype, grid, j, sorted_build, opts, overflows = _ROWS_CASES[case]
+    p, c, cell = _rows_box(dev, reps, a, tilt, dtype)
+    grid = grid or grid_shape(cell, 5.6)
+    kw = dict(opts, max_neighbors=j, grid=grid)
+    if "real" in kw:
+        kw["real"] = torch.arange(len(p), device=dev) % kw["real"] != 0
+    build = build_sorted_neighbor_list if sorted_build else build_neighbor_list
+    launches, plain = nbm.K8.launches, nbm.K8.plain_calls
+    got = build(p, c, 5.6, **kw)
+    torch.cuda.synchronize()
+    assert (nbm.K8.launches, nbm.K8.plain_calls) == (launches + 1, plain)
+    monkeypatch.setattr(nbm, "neighbor_rows", nbm.neighbor_rows_plain)
+    want = build(p, c, 5.6, **kw)
+    torch.cuda.synchronize()
+    assert (nbm.K8.launches, nbm.K8.plain_calls) == (launches + 1, plain + 1)
+    assert bool(got.overflow) == bool(want.overflow) == overflows
+    if overflows:
+        return
+    assert got.idx.dtype == torch.int32 and got.idx.shape == want.idx.shape
+    assert torch.equal(got.idx, want.idx)
+    assert (got.mirror is None) == (want.mirror is None) == ("centers" in opts)
+    if got.mirror is not None:
+        assert torch.equal(got.mirror, want.mirror)
+    if sorted_build:
+        assert torch.equal(got.order, want.order)
+    live = float((got.idx != torch.arange(len(got.idx), device=dev)[:, None]).sum())
+    assert live > 20 * len(got.idx) * (0.8 if "real" in opts else 1.0)
+
+
+def test_neighbor_rows_is_one_launch(dev):
+    """The row phase on the card: one K8 launch beside the count's zero
+    fill; no sort kernel."""
+    p, c, cell = _rows_box(dev, (10, 10, 10), 3.8)
+    grid = grid_shape(cell, 5.6)
+    inv, bin3, table, counts, _ = nbm._cell_table(p, c, 5.6, grid, None, None)
+    args = (p, bin3, table, counts, c, inv.contiguous(), grid, 5.6, 64, len(p))
+    nbm.neighbor_rows(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        nbm.neighbor_rows(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and sum("neighbor_rows_kernel" in n for n in names) == 1, names
+    assert not any("sort" in n.lower() for n in names), names
+
+
+def test_neighbor_rows_refuses_bad_operands(dev):
+    p, c, cell = _rows_box(dev, (6, 6, 6))
+    grid = grid_shape(cell, 5.6)
+    inv, bin3, table, counts, _ = nbm._cell_table(p, c, 5.6, grid, None, None)
+    args = (p, bin3, table, counts, c, inv.contiguous(), grid, 5.6, 64, len(p))
+    for i, bad in ((0, p.half()), (1, bin3.int()), (2, table.int()), (3, counts.int()),
+                   (4, c.double())):
+        with pytest.raises(TypeError):
+            nbm.neighbor_rows(*args[:i], bad, *args[i + 1:])
+    for i, bad in ((5, inv), (0, p.T.contiguous().T), (1, bin3[:-1]), (3, counts[:-1]),
+                   (9, len(p) + 1)):
+        with pytest.raises(ValueError):
+            nbm.neighbor_rows(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(RuntimeError):  # a J whose buffer exceeds shared memory
+        nbm.neighbor_rows(*args[:8], 9000, len(p))
+
+
+def test_simulation_run_builds_rows_with_the_kernel(dev):
+    """`Simulation.run` on the card: K8 launches once per rebuild and its
+    plain twin never runs."""
+    model = MTPModel.from_data(make_mtp(8, seed=0), device=dev, dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6))
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=10,
+                     compute_virial=False)
+    rebuilds = []
+    inner = sim.rebuild
+    sim.rebuild = lambda *a, **kw: rebuilds.append(1) or inner(*a, **kw)
+    launches, plain = nbm.K8.launches, nbm.K8.plain_calls
+    sim.run(st, 30, dt=0.001)
+    torch.cuda.synchronize()
+    assert len(rebuilds) >= 3
+    assert nbm.K8.launches - launches == len(rebuilds) and nbm.K8.plain_calls == plain
 
 
 def test_main_path_launches_every_kernel(dev):

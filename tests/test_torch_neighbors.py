@@ -11,6 +11,7 @@ from mtp_tpu.md.simulation import make_lattice
 from mtp_tpu.ops.neighbors import build_neighbor_list as bnl_jax
 from mtp_tpu.ops.neighbors import build_sorted_neighbor_list as bsnl_jax
 from mtp_tpu.ops.neighbors import grid_shape as grid_jax
+from mtp_tpu_torch.ops import neighbors as nbm
 from mtp_tpu_torch.ops.neighbors import (
     build_neighbor_list,
     build_sorted_neighbor_list,
@@ -286,3 +287,48 @@ def test_narrow_axis_flags_the_minimum_image():
     ok = build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(cell), 5.6, max_neighbors=96,
                              grid=grid)
     assert not bool(ok.overflow)
+
+
+def test_cpu_tensors_take_the_plain_row_phase():
+    """On the CPU every build runs the row phase's plain twin once (its
+    counter moves), and K8 never launches; the sorted build likewise."""
+    pos, cell = _box(reps=(4, 4, 4), seed=10)
+    p, c = torch.as_tensor(pos), torch.as_tensor(cell)
+    grid = grid_shape(cell, CUT)
+    launches, plain = nbm.K8.launches, nbm.K8.plain_calls
+    build_neighbor_list(p, c, CUT, max_neighbors=64, grid=grid)
+    build_sorted_neighbor_list(p, c, CUT, max_neighbors=64, grid=grid)
+    assert nbm.K8.plain_calls == plain + 2 and nbm.K8.launches == launches == 0
+
+
+@pytest.mark.parametrize("case", ["fcc", "triclinic", "real and centers", "self image, J 104",
+                                  "2-bin axes", "overflow"])
+def test_plain_rows_ignore_the_row_block(case, monkeypatch):
+    """The plain twin's rows and largest count do not depend on how many
+    rows a pass takes (8,192 against 7): each row is computed on its own,
+    which the kernel's single launch over all rows relies on."""
+    reps, tilt, kw, j = (6, 6, 6), 0.0, {}, 64
+    if case == "triclinic":
+        tilt = 0.2
+    elif case == "real and centers":
+        kw = dict(real=torch.as_tensor(np.arange(864) % 5 != 0), centers=700)
+    elif case == "self image, J 104":
+        kw, j = dict(include_self_image=True), 104
+    elif case == "2-bin axes":
+        reps = (3, 3, 3)
+    elif case == "overflow":
+        j = 20
+    pos, cell = _box(reps=reps, seed=11, tilt=tilt)
+    p, c = torch.as_tensor(pos), torch.as_tensor(cell)
+    grid = grid_shape(cell, CUT)
+    real = kw.get("real")
+    inv, bin3, table, counts, _ = nbm._cell_table(p, c, CUT, grid, None, real)
+    args = (p, bin3, table, counts, c, inv, grid, CUT, j, kw.get("centers", len(pos)), real,
+            kw.get("include_self_image", False))
+    idx, count = nbm.neighbor_rows_plain(*args)
+    assert nbm._ROW_BLOCK == 8192
+    monkeypatch.setattr(nbm, "_ROW_BLOCK", 7)
+    idx7, count7 = nbm.neighbor_rows_plain(*args)
+    assert torch.equal(idx, idx7) and int(count) == int(count7)
+    assert (int(count) > j) == (case == "overflow")
+    assert idx.shape == (args[9], j) and bool((idx[:, 1:] >= idx[:, :-1]).all())
