@@ -17,7 +17,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    J = 64, skin 0.6): 60 NVE steps at steps_per_rebuild=10, then a timed
    ``run_async`` of 210 steps at steps_per_rebuild=30. Both flags clear,
    finite positions and energies, every kernel launched and no plain
-   version called during the run.
+   version called during the run: K9 twice a step, K10 once, K8 once a
+   rebuild.
 5. Each kernel at the main path's shapes against its plain version, with
    its time and the plain version's time (CUDA events), its bound (the
    larger of its bytes over 3.35 TB/s and its fp32 operations on these
@@ -38,6 +39,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and output byte once) and share of it (device ms from the stage split),
    one launch per build, and the build's ms and peak device memory with K8
    and with the twin.
+5c. The MD step's kernels, K9 md_step (the kick and drift, and the closing
+   kick with the step count) and K10 verlet_top2 (the Verlet check), on
+   random fp32 arrays of 32,000 and 131,072 atoms: outputs bit-equal to
+   their plain twins; their ms and the plain chains' ms, their bound (bytes:
+   every input and output once) and share of it (device ms from the stage
+   split); phase 4 checks 2 K9 and 1 K10 launches a step and no twin call.
 6. Active-learning kernels on the phase-3 box, with an MVS state built by
    ``build_mvs`` from float64 plain candidate vectors of perturbed copies:
    K5 against its plain twin on every output, K6 and K7 (through the autograd
@@ -151,7 +158,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    size. The phase must take under a minute.
 
 Prints one JSON line of the ensembles' numbers, one of the sharded path,
-one of the long box, one of training and the gate, then one of all eight
+one of the long box, one of training and the gate, then one of all ten
 kernels (with their launch counts in phases 11 and 12 and their errors on
 the rank rows of 11b and 12b), before the last line, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -714,6 +721,79 @@ def neighbor_rows_phase(dev, card):
         check(per_build == 1, f"{tag}: K8 launched {per_build} times in one build")
         rows[tag] = row
         calls[f"neighbor_rows {tag}"] = lambda args=args: nbm.neighbor_rows(*args)
+    return rows, calls
+
+
+# phase 5c: K9's two calls of a velocity-Verlet step, (kick, drift, count the
+# step), and the bytes an atom of each call and of K10 in fp32: every input
+# and output once (kick and drift: x, v, f, m read, x' and v' written;
+# closing kick: v, f, m read, v' written; check: x and the reference read)
+MD_STEP_CALLS = {"kick and drift": (True, True, False), "kick and step": (True, False, True)}
+MD_STEP_BYTES = {"kick and drift": 64, "kick and step": 40, "verlet_top2": 24}
+
+
+def md_step_phase(dev, card):
+    """Phase 5c: K9 (both calls of an NVE step) and K10 against their plain
+    twins on random fp32 arrays at 32,000 and 131,072 atoms: outputs bit-equal,
+    the flag equal at a skin either side of the displacements' sum; ms by
+    CUDA events of the kernel and of its plain chain, the bound from the
+    bytes. Returns ({tag: row}, {label: call} for `stage_ms`)."""
+    import torch
+
+    from mtp_tpu_torch.ops import md_step as ms
+    from mtp_tpu_torch.utils import units
+
+    rows, calls = {}, {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for tag, reps in ROWS_BOXES.items():
+        n = 4 * reps[0] * reps[1] * reps[2]
+        x = 70.0 * torch.rand((n, 3), generator=g, device=dev)
+        v = 5.0 * torch.randn((n, 3), generator=g, device=dev)
+        f = torch.randn((n, 3), generator=g, device=dev)
+        m = 20.0 + 100.0 * torch.rand(n, generator=g, device=dev)
+        step = torch.zeros((), dtype=torch.int64, device=dev)
+        ref = x + 0.05 * torch.randn((n, 3), generator=g, device=dev)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        kick = 0.5 * 0.001 * units.FTM2A
+        work = {}
+        for call, (k, d, c) in MD_STEP_CALLS.items():
+            args = (x, v, f, m, step if c else None)
+            kw = dict(kick=kick if k else None, drift=0.001 if d else None)
+            got = ms.md_step(*args, **kw)
+            want = ms.md_step_plain(*args, **kw)
+            torch_sync()
+            check(all(a is b or torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{tag}: md_step {call} differs from its plain twin")
+            work[f"md_step {call}"] = (
+                ms.K9, lambda args=args, kw=kw: ms.md_step(*args, **kw),
+                lambda args=args, kw=kw: ms.md_step_plain(*args, **kw), MD_STEP_BYTES[call])
+        got, want = ms.verlet_top2(x, ref), ms.verlet_top2_plain(x, ref)
+        s = float(torch.sqrt(want[0]) + torch.sqrt(want[1]))
+        flags = []
+        for skin in (s * (1 - 1e-6), s * (1 + 1e-6)):
+            for fn in (ms.verlet_check, ms.verlet_check_plain):
+                fl = torch.zeros((), dtype=torch.bool, device=dev)
+                fn(x, ref, skin, fl)
+                flags.append(bool(fl))
+        check(torch.equal(got, want) and flags == [True, True, False, False],
+              f"{tag}: verlet_top2 differs from its plain twin (flags {flags})")
+        work["verlet_top2"] = (
+            ms.K10, lambda: ms.verlet_check(x, ref, 0.6, flag),
+            lambda: ms.verlet_check_plain(x, ref, 0.6, flag), MD_STEP_BYTES["verlet_top2"])
+        for label, (kern, fn, plain, per_atom) in work.items():
+            nbytes = per_atom * n
+            ms_k, plain_ms = time_ms(fn, 20), time_ms(plain, 20)
+            row = dict(
+                name=kern.name, call=label, route="cuda", source=kern.source,
+                replaces=kern.replaces, atoms=n, max_abs_err=0.0, ms=ms_k, plain_ms=plain_ms,
+                bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", operations=None,
+                bytes=nbytes, library_ms=None,
+            )
+            print(f"  {label} {tag}: {n} atoms, bit-equal to the plain twin; {ms_k:.4f} ms "
+                  f"(plain chain {plain_ms:.4f} ms); bound {row['bound_ms']:.5f} ms (bytes: "
+                  f"{nbytes / 1e6:.2f} MB) on {card}")
+            rows[f"{label} {tag}"] = row
+            calls[f"{label} {tag}"] = fn
     return rows, calls
 
 
@@ -2173,6 +2253,7 @@ def main() -> int:
         mtp_energy_forces_window,
         window_constants,
     )
+    from mtp_tpu_torch.ops.md_step import K9, K10
     from mtp_tpu_torch.ops.neighbors import (
         K8,
         build_neighbor_list,
@@ -2259,8 +2340,8 @@ def main() -> int:
     state, _, fl, nl = sim.run_async(state, 210, dt=0.001, return_nl=True)
     torch_sync()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels + [K8]}
-    plain = {k.name: k.plain_calls for k in kernels + [K8]}
+    launches = {k.name: k.launches for k in kernels + [K8, K9, K10]}
+    plain = {k.name: k.plain_calls for k in kernels + [K8, K9, K10]}
     # run_async rebuilds once a block
     rebuilds = -(-60 // eq.steps_per_rebuild) - (-210 // sim.steps_per_rebuild)
     e1 = state.potential_energy + kinetic_energy(state)
@@ -2281,6 +2362,13 @@ def main() -> int:
           f"rebuilds, its plain twin {plain[K8.name]} calls")
     check(launches[K8.name] == rebuilds, f"{K8.name} did not launch once per main-path rebuild")
     check(plain[K8.name] == 0, f"{K8.name}'s plain twin ran on the main path")
+    print(f"[4 main path] {K9.name}: {launches[K9.name]} launches and {K10.name}: "
+          f"{launches[K10.name]} for the run's 270 steps, their plain twins "
+          f"{plain[K9.name]} and {plain[K10.name]} calls")
+    check(launches[K9.name] == 2 * 270 and launches[K10.name] == 270,
+          f"{K9.name} did not launch twice and {K10.name} once a main-path step")
+    check(plain[K9.name] == 0 and plain[K10.name] == 0,
+          f"{K9.name}'s or {K10.name}'s plain twin ran on the main path")
     drift = (float(e1) - float(e0)) / n
     rate = n * 210 / wall
     print(f"[4 main path] E_tot drift over 210 steps: {drift:.3e} eV/atom; "
@@ -2298,6 +2386,9 @@ def main() -> int:
           f"cutoff + skin {ROWS_CUT} A")
     rows_k8, rows_calls = neighbor_rows_phase(dev, card)
     stage_calls.update(rows_calls)
+    print("[5c md step] K9 and K10 against their plain twins on random fp32 arrays")
+    rows_md, md_calls = md_step_phase(dev, card)
+    stage_calls.update(md_calls)
 
     # ---- 6. active-learning kernels, and the fp32 grade step vs float64
     al_kernel_phase(m2, p32, ty, c32, swl)
@@ -2364,6 +2455,17 @@ def main() -> int:
               f"{row['launches_per_build']} launch per rebuild")
         row["main_path_launches"] = launches[K8.name]
         row["main_path_rebuilds"] = rebuilds
+        rows.append(row)
+    for label, row in rows_md.items():
+        kernel = "verlet_top2_kernel" if row["name"] == "verlet_top2" else "md_step_kernel"
+        dev_ms = sum(ms for name, ms in stages[label].items() if kernel in name)
+        share = device_share(row, dev_ms)
+        row["main_path_launches_per_step"] = launches[row["name"]] / steps
+        print(f"  {label}: {row['ms']:.4f} ms by CUDA events around the wrapper, "
+              f"{dev_ms:.4f} ms on the device (plain chain {row['plain_ms']:.4f} ms); bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {share} of the device time; "
+              f"{launches[row['name']] / steps:.4f} launches of {row['name']} per main-path "
+              f"step")
         rows.append(row)
     for row in rows:
         row["sharded_launches"] = sharded_counts.get(row["name"])

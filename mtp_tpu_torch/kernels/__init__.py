@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels: build (``_build``) and registry.
 
 Each kernel's wrapper lives beside its plain PyTorch twin in ``ops/``; this
-module only lists them: the main path's four in the order it runs them per
-step, the kernel active learning adds, and all eight (the seven ports of the
-TPU kernels and the neighbor list's row phase).
+module only lists them: the main path's four force-path kernels in the order
+it runs them per step, the kernel active learning adds, and all ten (the
+seven ports of the TPU kernels, the neighbor list's row phase, and the MD
+step's kick and drift and Verlet check).
 """
 
 from __future__ import annotations
@@ -29,13 +30,16 @@ def al_path_kernels():
 
 
 def all_kernels():
-    """K1-K8 in order: the main path's four, K5, K6 basic_moments_fused with
-    its vjp K7 (the modular path of ``ops/fused_basic.py``), and K8
-    neighbor_rows (once per neighbor-list build, on every path)."""
+    """K1-K10 in order: the main path's four, K5, K6 basic_moments_fused with
+    its vjp K7 (the modular path of ``ops/fused_basic.py``), K8
+    neighbor_rows (once per neighbor-list build, on every path), K9 md_step
+    (the kick and drift: twice a velocity-Verlet step) and K10 verlet_top2
+    (the Verlet check: once a step, on the sharded path and in FIRE too)."""
     from mtp_tpu_torch.ops.fused_basic import K6, K7
+    from mtp_tpu_torch.ops.md_step import K9, K10
     from mtp_tpu_torch.ops.neighbors import K8
 
-    return main_path_kernels() + al_path_kernels() + [K6, K7, K8]
+    return main_path_kernels() + al_path_kernels() + [K6, K7, K8, K9, K10]
 
 
 def reset_counts() -> None:

@@ -8,7 +8,8 @@ aux)`` (NVE: ``-> state``) over device tensors: the aux states are
 ``torch.where``, and no step reads a value back to the host. The force
 evaluation is injected as ``force_fn(positions, types, cell) -> (forces,
 potential_energy, virial)``, so the integrators stay independent of the
-potential and of neighbor-list management.
+potential and of neighbor-list management. Every half kick and drift goes
+through ``ops.md_step.md_step`` (one K9 launch on the card).
 
 Precision: the JAX package pins every (3, 3) product to HIGHEST precision
 because the TPU's matrix unit rounds fp32 operands. Torch's ``matmul`` runs
@@ -27,19 +28,26 @@ from typing import Callable, NamedTuple
 import torch
 
 from mtp_tpu_torch.md.state import MDState, kinetic_energy, volume_of
+from mtp_tpu_torch.ops.md_step import md_step
 from mtp_tpu_torch.utils import units
 from mtp_tpu_torch.utils.device import resolve_device
 
 ForceFn = Callable
 
 
-def _half_kick(state: MDState, dt):
-    dv = (0.5 * dt * units.FTM2A) * state.forces / state.masses[:, None]
-    return dataclasses.replace(state, velocities=state.velocities + dv)
+def _half_kick(state: MDState, dt, *, drift=None, count_step=False):
+    """v += (dt/2) F/m; then, where asked, the drift x += drift * v and the
+    step count: one K9 launch on the card."""
+    x, v, step = md_step(state.positions, state.velocities, state.forces, state.masses,
+                         state.step if count_step else None, kick=0.5 * dt * units.FTM2A,
+                         drift=drift)
+    return dataclasses.replace(state, positions=x, velocities=v,
+                               step=step if count_step else state.step)
 
 
 def _drift(state: MDState, dt):
-    return dataclasses.replace(state, positions=state.positions + dt * state.velocities)
+    x, _, _ = md_step(state.positions, state.velocities, state.forces, state.masses, drift=dt)
+    return dataclasses.replace(state, positions=x)
 
 
 def _with_forces(state: MDState, force_fn) -> MDState:
@@ -51,12 +59,11 @@ def _with_forces(state: MDState, force_fn) -> MDState:
 
 
 def nve_step(state: MDState, force_fn: ForceFn, dt: float) -> MDState:
-    """One velocity-Verlet step."""
-    state = _half_kick(state, dt)
-    state = _drift(state, dt)
+    """One velocity-Verlet step: kick and drift, forces, closing kick (two
+    K9 launches on the card besides the forces)."""
+    state = _half_kick(state, dt, drift=dt)
     state = _with_forces(state, force_fn)
-    state = _half_kick(state, dt)
-    return dataclasses.replace(state, step=state.step + 1)
+    return _half_kick(state, dt, count_step=True)
 
 
 # ------------------------------------------------------------- Langevin ----
@@ -94,8 +101,7 @@ def langevin_step(
     discards a block and retries it draws the same noise (the JAX package
     splits its key the same way)."""
     gen = _fork(aux.generator)
-    state = _half_kick(state, dt)
-    state = _drift(state, 0.5 * dt)
+    state = _half_kick(state, dt, drift=0.5 * dt)
     # O: Ornstein-Uhlenbeck exact update
     c1 = math.exp(-dt / damping)
     sigma = torch.sqrt(units.KB * temperature / (state.masses * units.MVV2E) * (1 - c1**2))
@@ -106,8 +112,7 @@ def langevin_step(
     state = dataclasses.replace(state, velocities=c1 * state.velocities + sigma[:, None] * noise)
     state = _drift(state, 0.5 * dt)
     state = _with_forces(state, force_fn)
-    state = _half_kick(state, dt)
-    return dataclasses.replace(state, step=state.step + 1), LangevinAux(gen)
+    return _half_kick(state, dt, count_step=True), LangevinAux(gen)
 
 
 # ------------------------------------------------------ Nose-Hoover NVT ----

@@ -30,6 +30,7 @@ import torch
 
 from mtp_tpu_torch.md import integrators as itg
 from mtp_tpu_torch.md.state import MDState
+from mtp_tpu_torch.ops.md_step import verlet_check
 from mtp_tpu_torch.ops.neighbors import check_cell
 from mtp_tpu_torch.utils import units
 
@@ -90,7 +91,6 @@ def _fire_scan(
     pos, vel, f, pe, vir = (state.positions, state.velocities, state.forces,
                             state.potential_energy, state.virial)
     dt, alpha, n_pos = aux
-    rows = torch.arange(state.n_atoms, device=pos.device)
     stale = torch.zeros((), dtype=torch.bool, device=pos.device)
     for _ in range(n_steps):
         # semi-implicit Euler kick with the current forces
@@ -123,11 +123,7 @@ def _fire_scan(
         f, pe, vir = force_fn(pos, state.types, state.cell)
 
         # Verlet staleness: exact pair criterion (max1 + max2 > skin)
-        d = pos - ref_positions
-        d2 = torch.sum(d * d, dim=-1)
-        m1 = torch.max(d2)
-        m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
-        stale = stale | (torch.sqrt(m1) + torch.sqrt(m2) > skin)
+        verlet_check(pos, ref_positions, skin, stale)
     state = dataclasses.replace(
         state, positions=pos, velocities=vel, forces=f, potential_energy=pe, virial=vir,
         step=state.step + n_steps,

@@ -36,6 +36,7 @@ from mtp_tpu_torch.models.mtp import (
     mtp_energy_window,
     window_constants,
 )
+from mtp_tpu_torch.ops.md_step import verlet_check
 from mtp_tpu_torch.ops.neighbors import (
     SortedNeighborList,
     build_sorted_neighbor_list,
@@ -250,7 +251,7 @@ class Simulation:
             return torch.stack(cell_product(ref_frac, cell), dim=-1), shrink
 
         scaled_ref, shrink = geometry(state.cell)
-        rows = torch.arange(state.n_atoms, device=state.positions.device)
+        # the block's flag: each step's check ORs into it in place (K10)
         stale = torch.zeros((), dtype=torch.bool, device=state.positions.device)
         for _ in range(n_steps):
             with span("md.integrate"):
@@ -258,11 +259,7 @@ class Simulation:
             with span("md.verlet_check"):
                 if ensemble not in _CONSTANT_CELL:
                     scaled_ref, shrink = geometry(state.cell)
-                d = state.positions - scaled_ref
-                d2 = torch.sum(d * d, dim=-1)
-                m1 = torch.max(d2)
-                m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
-                stale = stale | (torch.sqrt(m1) + torch.sqrt(m2) + shrink > self.skin)
+                verlet_check(state.positions, scaled_ref, self.skin, stale, shrink)
         return state, aux, stale
 
     def steps(

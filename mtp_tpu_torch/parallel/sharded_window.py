@@ -57,6 +57,7 @@ from mtp_tpu_torch.models.mtp import (
     mtp_energy_window,
     window_constants,
 )
+from mtp_tpu_torch.ops.md_step import verlet_top2
 from mtp_tpu_torch.ops.neighbors import (
     build_sorted_neighbor_list,
     grid_shape,
@@ -329,7 +330,6 @@ class ShardedSimulation:
         inv_ref = inverse_cell(cell)
         ref_frac = cell_product(pos.unbind(-1), inv_ref)
         ref_widths = plane_spacings(inv_ref)
-        rows = torch.arange(pos.shape[0], device=pos.device)
 
         def geometry(cell):
             shrink = torch.clamp(1.0 - torch.min(plane_spacings(inverse_cell(cell)) / ref_widths),
@@ -384,10 +384,7 @@ class ShardedSimulation:
                 th = torch.cat([xi, eta, bxi, beta, bv[None], th[9:]])
             if ensemble.startswith("npt"):
                 scaled_ref, shrink = geometry(cell)
-            d = pos - scaled_ref
-            d2 = torch.where(real, torch.sum(d * d, dim=-1), 0.0)
-            m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
-            tops.append(torch.stack([torch.max(d2), m2]))
+            tops.append(verlet_top2(pos, scaled_ref, real))
             shrinks.append(shrink)
         stale = torch.zeros((), dtype=torch.bool, device=pos.device)
         if tops:

@@ -24,7 +24,9 @@ plain path (the oracle) bit-equal between runs; two training steps on the
 card against the CPU 1e-9 relative in losses and coefficients. K8
 neighbor_rows bit-equal to its plain twin in rows, mirror and flag whenever
 no capacity overflows (the same IEEE operations in the same order), the flag
-alone under overflow.
+alone under overflow. K9 md_step bit-equal to its plain twin in positions,
+velocities and step; K10 verlet_top2 bit-equal in m1 and m2 (NaN where the
+twin's is) and equal in the flag, on every case.
 """
 
 import json
@@ -42,6 +44,7 @@ from mtp_tpu_torch.models.mtp import MTPModel, _window_geometry, window_constant
 from mtp_tpu_torch.ops import fused_basic as fb
 from mtp_tpu_torch.ops import fused_candidates as fc
 from mtp_tpu_torch.ops import fused_moments as fm
+from mtp_tpu_torch.ops import md_step as ms
 from mtp_tpu_torch.ops import neighbors as nbm
 from mtp_tpu_torch.ops import window_disp as wd
 from mtp_tpu_torch.ops import window_giveback as wg
@@ -591,6 +594,223 @@ def test_main_path_launches_every_kernel(dev):
     for kk, (l0, p0) in zip(ks, before):
         assert kk.launches > l0, kk.name
         assert kk.plain_calls == p0, kk.name
+
+
+# K9's modes: (kick, drift, count the step); dt 1 fs as the cells run it
+_DT = 0.001
+_MD_MODES = {"kick": (True, None, False), "kick and step": (True, None, True),
+             "kick and drift": (True, _DT, False), "drift": (False, _DT, False),
+             "kick, drift and step": (True, 0.5 * _DT, True)}
+
+
+def _md_arrays(dev, n, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64).to(dtype).to(dev)
+
+    masses = (20.0 + 100.0 * torch.rand(n, generator=g, dtype=torch.float64)).to(dtype).to(dev)
+    step = torch.tensor(41, dtype=torch.int64, device=dev)
+    return 40.0 * r(n, 3), 5.0 * r(n, 3), r(n, 3), masses, step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [32000, 131072])
+def test_md_step_kernel_is_bit_equal_to_plain(dev, n, dtype):
+    """K9 in each mode against its plain twin on the card: positions,
+    velocities and step bit for bit; the inputs left as they were."""
+    from mtp_tpu_torch.utils import units
+
+    x, v, f, m, step = _md_arrays(dev, n, dtype)
+    keep = [t.clone() for t in (x, v, f, m, step)]
+    for mode, (kick, drift, count) in _MD_MODES.items():
+        kw = dict(kick=0.5 * _DT * units.FTM2A if kick else None, drift=drift)
+        st = step if count else None
+        launches = ms.K9.launches
+        got = ms.md_step(x, v, f, m, st, **kw)
+        want = ms.md_step_plain(x, v, f, m, st, **kw)
+        torch.cuda.synchronize()
+        assert ms.K9.launches == launches + 1, mode
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b), mode
+        if drift is None:
+            assert got[0] is x, mode
+        if not kick:
+            assert got[1] is v, mode
+        assert all(torch.equal(a, b) for a, b in zip((x, v, f, m, step), keep)), mode
+
+
+def _top2_cases(dev, dtype):
+    """{case: (positions, reference, real, flag before)} for K10."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def box(n):
+        ref = 30.0 * torch.rand(n, 3, generator=g, dtype=torch.float64)
+        d = 0.05 * torch.randn(n, 3, generator=g, dtype=torch.float64)
+        return (ref + d).to(dtype).to(dev), ref.to(dtype).to(dev)
+
+    out = {}
+    x, ref = box(32000)
+    out["random"] = (x, ref, None, False)
+    out["random, flag set"] = (x, ref, None, True)
+    x, ref = box(131072)
+    out["random 131k"] = (x, ref, None, False)
+    xt, rt = x.clone(), ref.clone()
+    rt[[5, 90000]] = 7.0  # the same operands: a tie for the largest
+    xt[[5, 90000]] = 7.3
+    out["tie"] = (xt, rt, None, False)
+    x1, r1 = box(1)
+    out["one row"] = (x1, r1, None, False)
+    x2, r2 = box(1000)  # not a multiple of the block
+    out["1000 rows"] = (x2, r2, None, False)
+    real = torch.rand(32000, generator=g) < 0.7
+    xr = out["random"][0].clone()
+    xr[~real.to(dev)] += 25.0  # trash rows far off: only the mask keeps them out
+    out["real"] = (xr, out["random"][1], real.to(dev), False)
+    xn = out["random"][0].clone()
+    xn[7, 1] = float("nan")
+    out["one NaN"] = (xn, out["random"][1], None, False)
+    xn2 = xn.clone()
+    xn2[31000, 0] = float("nan")
+    out["two NaN"] = (xn2, out["random"][1], None, False)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_verlet_top2_kernel_matches_plain(dev, dtype):
+    """K10 against its plain twin on the card: m1 and m2 bit-equal (NaN where
+    the twin's is NaN), and the flag equal, with and without a shrink term
+    and at skins either side of the displacements' sum, and set flags stay
+    set."""
+    shrink = torch.tensor(0.0125, dtype=dtype, device=dev)
+    for case, (x, ref, real, before) in _top2_cases(dev, dtype).items():
+        got = ms.verlet_top2(x, ref, real)
+        want = ms.verlet_top2_plain(x, ref, real)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), case
+        assert torch.equal(got[~nan], want[~nan]), case
+        if nan[0]:
+            skins = [0.1, 10.0]
+        else:
+            s = float(torch.sqrt(want[0]) + torch.sqrt(want[1]))
+            skins = [s * (1 - 1e-3), s * (1 + 1e-3), s - 0.0125, s]
+        for sk in skins:
+            for sh in (None, shrink):
+                flags = []
+                for check in (ms.verlet_check, ms.verlet_check_plain):
+                    flag = torch.tensor(before, device=dev)
+                    check(x, ref, sk, flag, sh, real)
+                    flags.append(bool(flag))
+                assert flags[0] == flags[1], (case, sk, sh)
+                assert flags[0] or not before, (case, sk, sh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_verlet_check_at_the_skin_by_ulps(dev, dtype):
+    """Displacements placed so that sqrt(m1) + sqrt(m2) lands a few ulp
+    either side of the skin: the kernel's flag is the twin's at every one."""
+    n, skin = 32000, 0.6
+    ref = torch.zeros(n, 3, dtype=dtype, device=dev)
+    x = ref.clone()
+    x[:, 0] = torch.linspace(0.0, 0.1, n, dtype=dtype, device=dev)
+    half = torch.tensor(skin / 2, dtype=dtype)
+    for k in range(-4, 5):
+        a = half
+        for _ in range(abs(k)):
+            a = torch.nextafter(a, torch.tensor(float("inf") if k > 0 else 0.0, dtype=dtype))
+        xs = x.clone()
+        xs[[17, 20000], 0] = a.to(dev)
+        flags = []
+        for check in (ms.verlet_check, ms.verlet_check_plain):
+            flag = torch.zeros((), dtype=torch.bool, device=dev)
+            check(xs, ref, skin, flag)
+            flags.append(bool(flag))
+        torch.cuda.synchronize()
+        assert flags[0] == flags[1], k
+        assert flags[0] == (k > 0) or k == 0, k
+
+
+def test_verlet_top2_relaunches_back_to_back(dev):
+    """1,000 launches back to back on one stream: the ticket resets after
+    each, so every launch finds the same top two."""
+    x, ref, _, _ = _top2_cases(dev, torch.float32)["random 131k"]
+    want = ms.verlet_top2_plain(x, ref)
+    outs = [ms.verlet_top2(x, ref) for _ in range(1000)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+def test_md_step_wrappers_raise_instead_of_falling_back(dev):
+    x, v, f, m, step = _md_arrays(dev, 100, torch.float32)
+    with pytest.raises(TypeError):
+        ms.md_step(x, v, f, m.double(), kick=1.0)
+    with pytest.raises(TypeError):
+        ms.md_step(x, v, f, m, step.int(), kick=1.0)
+    with pytest.raises(ValueError):
+        ms.md_step(x.T.contiguous().T, v, f, m, kick=1.0)
+    with pytest.raises(ValueError):
+        ms.md_step(x, v, f, m)
+    with pytest.raises(ValueError):
+        ms.md_step(x, v.cpu(), f, m, kick=1.0)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        ms.verlet_check(x, v.double(), 0.6, flag)
+    with pytest.raises(TypeError):
+        ms.verlet_check(x, v, 0.6, flag.int())
+    with pytest.raises(ValueError):
+        ms.verlet_check(x, v[:-1], 0.6, flag)
+    with pytest.raises(ValueError):
+        ms.verlet_check(x, v, 0.6, flag.cpu())
+    with pytest.raises(ValueError):
+        ms.verlet_top2(x[:0], v[:0])
+
+
+def test_nve_step_and_check_launch_only_their_kernels(dev):
+    """On the card a velocity-Verlet step around a force call launches K9
+    twice and nothing else, and the Verlet check K10 once and nothing else:
+    no torch elementwise or reduction kernel is left in either."""
+    from mtp_tpu_torch.md import integrators as itg
+
+    x, v, f, m, step = _md_arrays(dev, 32000, torch.float32)
+    st = init_state(x.cpu().numpy(), np.zeros(32000, dtype=np.int32), m.cpu().numpy(),
+                    np.eye(3) * 200.0, velocities=v.cpu().numpy(), device=dev)
+    pe, vir = torch.zeros((), device=dev), torch.zeros(6, device=dev)
+
+    def force(positions, types, cell):  # the forces of the step, already on the card
+        return f, pe, vir
+
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    itg.nve_step(st, force, _DT)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for fn, kernel, count in (
+            (lambda: itg.nve_step(st, force, _DT), "md_step_kernel", 2),
+            (lambda: ms.verlet_check(x, st.positions, 0.6, flag), "verlet_top2_kernel", 1)):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == count and all(kernel in name for name in names), names
+
+
+def test_simulation_run_block_launches_k9_and_k10(dev):
+    """One `Simulation.run` block of 15 NVE steps at 32,000 atoms launches
+    K9 30 times and K10 15 times, and neither twin."""
+    model = MTPModel.from_data(make_mtp(8, seed=0), device=dev, dtype=torch.float32)
+    pos, types, cell = make_lattice("fcc", 4.0, (20, 20, 20))
+    st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
+    st = thermalize(torch.Generator(device=dev).manual_seed(0), st, 300.0)
+    sim = Simulation(model, max_neighbors=64, skin=0.6, steps_per_rebuild=15,
+                     compute_virial=False)
+    before = [(k.launches, k.plain_calls) for k in (ms.K9, ms.K10)]
+    out, _ = sim.run(st, 15, dt=_DT)
+    torch.cuda.synchronize()
+    assert int(out.step) == int(st.step) + 15 and sim.steps_per_rebuild == 15
+    assert ms.K9.launches - before[0][0] == 30 and ms.K9.plain_calls == before[0][1]
+    assert ms.K10.launches - before[1][0] == 15 and ms.K10.plain_calls == before[1][1]
 
 
 def _rel(a, b):

@@ -321,6 +321,33 @@ def test_world_of_one_in_process(cases, tmp_path):
         sim.steps(out, None, 1, ensemble="langevin")
 
 
+def test_sharded_check_gives_the_flags_of_the_three_line_rule(cases, tmp_path):
+    """The sharded steps' Verlet check (each step's top two over the real
+    rows, through K10's wrapper) trips at the skins where the three-line
+    rule it replaced trips: on a world of one, either side of each of 4
+    steps' sqrt(m1) + sqrt(m2)."""
+    *_, cubic, _ = cases
+    with world_of_one(tmp_path):
+        sim, ss = shard(level8(), Comm(), cubic, vel_scale=3.0)
+        state, ctx, _ = sim.rebuild(ss)
+        ref, real = state.positions.clone(), state.real
+        rows = torch.arange(ref.shape[0])
+        sums = []
+        for k in range(1, 5):
+            out, _ = sim.steps(state, ctx, k, ensemble="nve", dt=0.001, refresh=True)
+            d = out.positions - ref
+            d2 = torch.where(real, torch.sum(d * d, dim=-1), 0.0)
+            m2 = torch.max(torch.where(rows == torch.argmax(d2), 0.0, d2))
+            sums.append(float(torch.sqrt(torch.max(d2)) + torch.sqrt(m2)))
+        flags = []
+        for skin in (s * (1 + e) for s in sums for e in (-1e-6, 1e-6)):
+            sim.skin = skin
+            _, stale = sim.steps(state, ctx, 4, ensemble="nve", dt=0.001, refresh=True)
+            flags.append(bool(stale))
+            assert flags[-1] == any(s > skin for s in sums), skin
+    assert any(flags) and not all(flags)
+
+
 def test_sharded_state_from_jax():
     """``sharded_state_from_jax`` gives each rank the slice of a JAX
     ``ShardedState.from_partition`` that the port's own ``from_partition``
