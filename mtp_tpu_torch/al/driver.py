@@ -43,6 +43,7 @@ from mtp_tpu_torch.ops.neighbors import (
     build_neighbor_list,
     check_cell,
     grid_shape,
+    grown_width,
 )
 from mtp_tpu_torch.utils.tracing import span
 
@@ -57,8 +58,33 @@ class BreakThresholdExceeded(RuntimeError):
         self.max_grade = max_grade
 
 
+class _Selection:
+    """What both monitors share: the MLIP-3 style, the max grade read to the
+    host once, the break rule and the ``.cfg`` stream."""
+
+    @property
+    def mlip3_style(self) -> bool:
+        return self.select_threshold is not None
+
+    @property
+    def max_grade(self) -> float:
+        if not isinstance(self._max_grade, float):
+            self._max_grade = float(self._max_grade)
+        return self._max_grade
+
+    def _check_break(self):
+        if self.break_threshold is not None and self.max_grade >= self.break_threshold:
+            # flush-before-break: no selected configuration may be lost
+            self.close()
+            raise BreakThresholdExceeded(self.max_grade)
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
 @dataclasses.dataclass(eq=False)
-class ExtrapolationMonitor:
+class ExtrapolationMonitor(_Selection):
     """Evaluates grades for a configuration and applies selection semantics.
 
     Observables (mirroring extract_peratom/pvector,
@@ -87,16 +113,6 @@ class ExtrapolationMonitor:
             )
         if self.output_path is not None:
             self._writer = CfgWriter(self.output_path)
-
-    @property
-    def mlip3_style(self) -> bool:
-        return self.select_threshold is not None
-
-    @property
-    def max_grade(self) -> float:
-        if not isinstance(self._max_grade, float):
-            self._max_grade = float(self._max_grade)
-        return self._max_grade
 
     @property
     def nbh_grades(self) -> Optional[np.ndarray]:
@@ -154,7 +170,7 @@ class ExtrapolationMonitor:
                         fits = not bool(nl.overflow)
                     if fits:
                         break
-                    self.max_neighbors = int(self.max_neighbors * 1.5) + 8
+                    self.max_neighbors = grown_width(self.max_neighbors, "during grading")
             out = candidates_and_forces(
                 model, state.positions, state.types, nl.idx, state.cell, nl.mirror,
             )
@@ -202,31 +218,14 @@ class ExtrapolationMonitor:
                     grades=None if self.model.configuration_mode else self.nbh_grades,
                     max_grade=self.max_grade,
                 )
-        if (
-            self.break_threshold is not None
-            and self.max_grade >= self.break_threshold
-        ):
-            # flush-before-break: no selected configuration may be lost
-            if self._writer is not None:
-                self._writer.close()
-            raise BreakThresholdExceeded(self.max_grade)
-
-    def close(self):
-        if self._writer is not None:
-            self._writer.close()
-
-
-def _grow_neighbors(sim: Simulation) -> None:
-    """Widen the Simulation's lists after an overflow (x1.5 + 8, rounded up
-    to a multiple of 8), as the JAX driver does."""
-    grown = int(sim.max_neighbors * 1.5) + 8
-    sim.max_neighbors = -(-grown // 8) * 8
+        self._check_break()
 
 
 def _first_list(sim: Simulation, state: MDState) -> SortedNeighborList:
-    """The Simulation's sorted list for the first grade step, grown until it
-    fits. The JAX driver grades the starting state on the standalone path;
-    here every grade step, the first included, takes the window path."""
+    """The Simulation's sorted list for the first grade step, grown by
+    ``Simulation._recover`` until it fits. The JAX driver grades the
+    starting state on the standalone path; here every grade step, the first
+    included, takes the window path."""
     cell_h = read_cell(state.cell)
     cut_skin = sim.model.cutoff + sim.skin
     check_cell(cell_h, cut_skin)
@@ -234,10 +233,9 @@ def _first_list(sim: Simulation, state: MDState) -> SortedNeighborList:
     while True:
         nl = sim.rebuild(state, grid=grid, max_neighbors=sim.max_neighbors)
         with span("md.read_flags"):
-            fits = not bool(nl.overflow)
-        if fits:
+            overflow = bool(nl.overflow)
+        if not sim._recover(overflow, False, during="during AL run"):
             return nl
-        _grow_neighbors(sim)
 
 
 def run_with_extrapolation(
@@ -262,8 +260,8 @@ def run_with_extrapolation(
     * SHARES its forward pass with the force refresh, so the next MD segment
       starts from the forces the grade step computed (``refresh=False``).
 
-    Retries a segment with grown capacity / halved rebuild interval on
-    overflow / staleness (the `Simulation.run` contract, counted in
+    A tripped segment is discarded and retried after
+    ``Simulation._recover`` (the `Simulation.run` rule, counted in
     ``sim.retries``). `run_kwargs` go to
     :meth:`Simulation.run_async` (``ensemble``, ``dt``, ``temperature``,
     ``pressure``, ``tdamp``, ``pdamp``); the integrator state (chains,
@@ -289,20 +287,8 @@ def run_with_extrapolation(
             pending = monitor._compute(new_state, nl=nl)
             with span("md.read_flags"):
                 ovf, stale = torch.stack([flags.overflow, flags.stale]).tolist()
-            if ovf:
-                _grow_neighbors(sim)
-                sim.retries["overflow"] += 1
-                continue
-            if stale:
-                if sim.steps_per_rebuild <= 1:
-                    raise RuntimeError(
-                        "Verlet staleness at steps_per_rebuild=1 during AL "
-                        "run: system diverging or skin too small"
-                    )
-                sim.steps_per_rebuild = max(1, sim.steps_per_rebuild // 2)
-                sim.retries["stale"] += 1
-                continue
-            break
+            if not sim._recover(ovf, stale, during="during AL run"):
+                break
         done += k
         _, state = monitor._commit(pending, new_state, refresh_forces=True)
         aux = new_aux
@@ -312,7 +298,7 @@ def run_with_extrapolation(
 
 
 @dataclasses.dataclass(eq=False)
-class ShardedExtrapolationMonitor:
+class ShardedExtrapolationMonitor(_Selection):
     """Multi-device extrapolation monitor: grades, the max over ranks, and
     an id-ordered gather to rank 0 for the preselected ``.cfg`` stream,
     with the single-device monitor's thresholds and flush-before-break
@@ -329,9 +315,10 @@ class ShardedExtrapolationMonitor:
       :func:`~mtp_tpu_torch.parallel.sharded_md.make_sharded_grades`, which
       builds its own halo and list per call, with `capacity`, `grid`,
       `max_neighbors` and `halo_capacity` (None: maximal). On a tripped
-      rebuild flag it grows `max_neighbors` (x1.5 + 8, rounded up to a
-      multiple of 8), sets the shell to its maximum and grades again: a
-      truncated list would underestimate grades. It refreshes no forces.
+      rebuild flag it grows `max_neighbors`
+      (:func:`~mtp_tpu_torch.ops.neighbors.grown_width`), sets the shell to
+      its maximum and grades again: a truncated list would underestimate
+      grades. It refreshes no forces.
 
     Every rank of `comm` holds one and makes the same calls: the max grade
     is the same on every rank, so every rank takes the same select and
@@ -360,16 +347,6 @@ class ShardedExtrapolationMonitor:
             raise ValueError("model has no MVS selection state")
         if self.output_path is not None and self.comm.rank == 0:
             self._writer = CfgWriter(self.output_path)
-
-    @property
-    def mlip3_style(self) -> bool:
-        return self.select_threshold is not None
-
-    @property
-    def max_grade(self) -> float:
-        if not isinstance(self._max_grade, float):
-            self._max_grade = float(self._max_grade)
-        return self._max_grade
 
     @property
     def nbh_grades(self) -> Optional[np.ndarray]:
@@ -417,14 +394,7 @@ class ShardedExtrapolationMonitor:
             g, grades, flags = self._grades_fn(sstate)
             if not bool(flags):  # the same on every rank
                 return dict(max_grade=g, grades=grades)
-            if self.max_neighbors >= 1024:
-                raise RuntimeError(
-                    f"standalone grading keeps tripping a flag at max_neighbors="
-                    f"{self.max_neighbors} with a maximal shell: not a capacity problem "
-                    "(migration overflow, escape, or the cell geometry)"
-                )
-            grown = int(1.5 * self.max_neighbors) + 8
-            self.max_neighbors = -(-grown // 8) * 8
+            self.max_neighbors = grown_width(self.max_neighbors, "during standalone grading")
             self.halo_capacity = None
             self._grades_fn = None
 
@@ -450,14 +420,7 @@ class ShardedExtrapolationMonitor:
             if self._writer is not None:
                 self._writer.write(sstate.cell.detach().cpu().numpy(), pos, typ,
                                    grades=grades, max_grade=self.max_grade)
-        if self.break_threshold is not None and self.max_grade >= self.break_threshold:
-            # flush-before-break: no selected configuration may be lost
-            self.close()
-            raise BreakThresholdExceeded(self.max_grade)
-
-    def close(self):
-        if self._writer is not None:
-            self._writer.close()
+        self._check_break()
 
 
 def run_sharded_with_extrapolation(
@@ -501,25 +464,14 @@ def run_sharded_with_extrapolation(
     while done < n_steps:
         k = min(al_every, n_steps - done)
         while True:
-            prev = cur = state
-            inner = 0
-            flags = None
-            while inner < k:
-                b = min(sim.steps_per_rebuild, k - inner)
-                cur, ctx, f4 = sim.rebuild(cur)
-                cur, stale = sim.steps(cur, ctx, b, refresh=False, **run_kwargs)
-                seg = torch.stack([*f4, stale])
-                flags = seg if flags is None else flags | seg
-                inner += b
+            cur, ctx, flags = sim._segment(state, k, refresh=False, **run_kwargs)
             # speculative grade dispatch BEFORE the flag read; _compute is
             # pure, so a tripped segment just discards it
             pending = monitor._compute(cur, sim=sim, ctx=ctx)
             flags = flags.tolist()
-            if any(flags):
-                sim._recover(flags, cell=prev.cell.detach().cpu().numpy())
-                state = prev
-                continue
-            break
+            if not any(flags):
+                break
+            sim._recover(flags, cell=state.cell.detach().cpu().numpy())
         done += k
         _, state = monitor._commit(pending, cur, refresh_forces=True)
         if observer is not None:

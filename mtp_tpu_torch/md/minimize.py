@@ -2,12 +2,13 @@
 LAMMPS ``minimize`` + ``min_style fire`` workflow users run before MD, e.g.
 to relax a read-in structure onto the potential's surface.
 
-The same block structure as :class:`~mtp_tpu_torch.md.simulation.Simulation`:
-one neighbor rebuild per block, then FIRE iterations against the frozen list
-in sorted space with force-only evaluations (K1, K2, K3 on the card), the
-energy (K4) once at the block's end, Verlet staleness checked every
-iteration, and capacity overflow recovered by the host loop exactly as
-``Simulation.run`` does. The adaptive quantities (dt, alpha, the downhill
+Each block is a :meth:`Simulation.block
+<mtp_tpu_torch.md.simulation.Simulation.block>` with FIRE's iterations as
+its scan: one neighbor rebuild, then FIRE iterations against the frozen
+list in sorted space with force-only evaluations (K1, K2, K3 on the card),
+the energy (K4) once at the block's end, and Verlet staleness checked every
+iteration. A tripped block recovers through ``Simulation._recover``, as in
+``Simulation.run``. The adaptive quantities (dt, alpha, the downhill
 counter) are device scalars, so a block reads nothing back to the host.
 
 Algorithm: FIRE 2.0 (Guenole et al., Comput. Mater. Sci. 175 (2020) 109584)
@@ -24,11 +25,11 @@ max per-atom force magnitude [eV/A] (LAMMPS's ftol bounds the global force
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
-from mtp_tpu_torch.md import integrators as itg
 from mtp_tpu_torch.md.state import MDState
 from mtp_tpu_torch.ops.md_step import verlet_check
 from mtp_tpu_torch.ops.neighbors import check_cell
@@ -69,6 +70,7 @@ def _fire_scan(
     *,
     n_steps: int,
     ref_positions,
+    ref_cell=None,
     skin: float,
     dt_max: float,
     dt_min: float,
@@ -81,10 +83,12 @@ def _fire_scan(
 ):
     """`n_steps` FIRE iterations against a frozen neighbor list.
 
+    The per-step scan :func:`fire_minimize` passes to ``Simulation.steps``.
     Incoming ``state.forces`` must be position-consistent. Returns (state,
     aux, stale): `stale` trips when the two largest displacements from the
     list's reference positions sum past the skin (the exact pair criterion;
-    the cell is fixed during minimization, so there is no affine term).
+    the cell is fixed during minimization, so `ref_cell` goes unused and
+    there is no affine term).
     """
     eps = 1e-30
     masses = state.masses[:, None]
@@ -131,29 +135,6 @@ def _fire_scan(
     return state, FireAux(dt=dt, alpha=alpha, n_pos=n_pos), stale
 
 
-def _fire_block(sim, state: MDState, aux: FireAux, *, grid: tuple, max_neighbors: int,
-                n_steps: int, refresh: bool, **fire_kw):
-    """One minimization block: rebuild + `n_steps` FIRE iterations, in
-    sorted space with the force-only kernels and the energy (K4) once at the
-    block's end, as ``Simulation.block`` does. Returns (state, aux,
-    overflow, stale, fmax), the last three device scalars."""
-    nl = sim.rebuild(state, grid=grid, max_neighbors=max_neighbors)
-    force_fn = sim.force_fn_window(nl, state.types, sorted_io=True, compute_energy=False)
-    state = sim._permute_state(state, nl.order)
-    if refresh:
-        state = itg._with_forces(state, force_fn)
-    state, aux, stale = _fire_scan(
-        state, aux, force_fn, n_steps=n_steps, ref_positions=nl.reference_positions[nl.order],
-        skin=sim.skin, **fire_kw,
-    )
-    state = dataclasses.replace(
-        state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
-    )
-    state = sim._permute_state(state, nl.inv_order)
-    fmax = torch.sqrt(torch.max(torch.sum(state.forces * state.forces, dim=-1)))
-    return state, aux, nl.overflow, stale, fmax
-
-
 def fire_minimize(
     sim,
     state: MDState,
@@ -178,8 +159,7 @@ def fire_minimize(
     Args:
       sim: a :class:`~mtp_tpu_torch.md.simulation.Simulation` (its
         ``max_neighbors``/``skin``/``steps_per_rebuild`` govern the blocks,
-        with the same overflow-grow / staleness-halve recovery as
-        ``Simulation.run``).
+        with ``Simulation.run``'s recovery, counted in ``sim.retries``).
       ftol: stop when max per-atom |F| < ftol [eV/A] (0 disables).
       etol: stop when |dE| < etol * |E| across a block (0 disables).
       max_steps: FIRE iteration budget.
@@ -199,9 +179,9 @@ def fire_minimize(
     check_cell(state.cell.detach().cpu().numpy(), sim.model.cutoff + sim.skin)
     state = dataclasses.replace(state, velocities=torch.zeros_like(state.velocities))
     aux = fire_init(dt0, alpha0, state.positions.dtype, state.positions.device)
-    fire_kw = dict(
-        dt_max=float(dt_max), dt_min=float(dt_min), alpha0=float(alpha0),
-        n_delay=int(n_delay), f_inc=float(f_inc), f_dec=float(f_dec),
+    scan = functools.partial(
+        _fire_scan, skin=sim.skin, dt_max=float(dt_max), dt_min=float(dt_min),
+        alpha0=float(alpha0), n_delay=int(n_delay), f_inc=float(f_inc), f_dec=float(f_dec),
         f_alpha=float(f_alpha), dmax=float(dmax),
     )
     done = 0
@@ -212,39 +192,20 @@ def fire_minimize(
     converged = False
     while done < max_steps:
         k = min(sim.steps_per_rebuild, max_steps - done)
-        new_state, new_aux, overflow, stale, fmax = _fire_block(
-            sim, state, aux, grid=sim.grid_for(state.cell), max_neighbors=sim.max_neighbors,
-            n_steps=k, refresh=refresh, **fire_kw,
+        new_state, new_aux, overflow, stale = sim.block(
+            state, aux, grid=sim.grid_for(state.cell), max_neighbors=sim.max_neighbors,
+            n_steps=k, refresh=refresh, first=done, scan=scan,
         )
+        fmax = torch.sqrt(torch.max(torch.sum(new_state.forces * new_state.forces, dim=-1)))
         overflow, stale, fmax_new, e_new = torch.stack([
             overflow.double(), stale.double(), fmax.double(),
             new_state.potential_energy.double(),
         ]).tolist()
-        if overflow:
-            if sim.max_neighbors >= 1024:
-                raise RuntimeError(
-                    "neighbor overflow persists at max_neighbors="
-                    f"{sim.max_neighbors} during minimization: not a "
-                    "list-width problem. Check the bin geometry and the "
-                    "structure for overlapping atoms."
-                )
-            grown = int(sim.max_neighbors * 1.5) + 8
-            sim.max_neighbors = -(-grown // 8) * 8
-            refresh = True  # block discarded; forces must be recomputed
-            continue
-        if stale:
-            if sim.steps_per_rebuild <= 1:
-                raise RuntimeError(
-                    "Verlet staleness at steps_per_rebuild=1 during "
-                    f"minimization: an atom moved > skin/2 ({sim.skin / 2:.3f}"
-                    " A) in one FIRE iteration. Lower dmax/dt_max or "
-                    "increase the skin."
-                )
-            sim.steps_per_rebuild = max(1, sim.steps_per_rebuild // 2)
-            refresh = True
+        # a discarded block leaves stale forces behind: the retry refreshes
+        refresh = sim._recover(overflow, stale, during="during minimization")
+        if refresh:
             continue
         state, aux = new_state, new_aux
-        refresh = False
         done += k
         if observer is not None:
             observer(state)

@@ -1,18 +1,23 @@
 """Simulation driver: the MTP model, the neighbor engine and an integrator
 in a block loop (port of ``mtp_tpu/md/simulation.py``).
 
-Each block rebuilds the bin-sorted neighbor list once, moves the state into
-sorted space, runs ``steps_per_rebuild`` integrator steps with force-only
-evaluations (K1, K2, K3 on the card), checks Verlet staleness with the top-2
-displacement rule, evaluates the energy once (K4) and moves back. The loop is
-eager Python over kernel launches and plain torch operations. Three drivers:
+One block, :meth:`Simulation.block`, is the only code that rebuilds and
+steps: it rebuilds the bin-sorted neighbor list once, moves the state into
+sorted space, runs its steps with force-only evaluations (K1, K2, K3 on the
+card), checks Verlet staleness with the top-2 displacement rule, evaluates
+the energy once (K4) and moves back. The loop is eager Python over kernel
+launches and plain torch operations. Three entry points run it:
 
-* :meth:`Simulation.run`       host loop: per-block flag check with the
-                               overflow and staleness recovery, observer hook.
+* :meth:`Simulation.run`       one block at a time, one host read of its
+                               flags, a tripped block recovered by
+                               :meth:`Simulation._recover`; observer hook.
 * :meth:`Simulation.run_async` throughput path: blocks queued back to back,
                                no host read until the caller reads the flags.
-* :meth:`Simulation.run_fused` ``n_blocks`` blocks back to back on a fixed
-                               grid and width, flags OR-ed into one.
+* :meth:`Simulation.run_fused` the same queue on a fixed grid and width,
+                               flags OR-ed into one.
+
+The AL driver (``al/driver.py``) and FIRE (``md/minimize.py``) step
+through the same block and recover through the same rule.
 
 Ensembles: ``"nve"``, ``"nvt"`` (Nose-Hoover chain), ``"langevin"`` (BAOAB),
 ``"npt"`` (isotropic MTK), ``"npt-aniso"`` and ``"npt-tri"`` (full-cell
@@ -24,6 +29,7 @@ counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +48,7 @@ from mtp_tpu_torch.ops.neighbors import (
     build_sorted_neighbor_list,
     check_cell,
     grid_shape,
+    grown_width,
 )
 from mtp_tpu_torch.ops.window_disp import cell_product, inverse_cell
 from mtp_tpu_torch.utils.tracing import span
@@ -78,7 +85,7 @@ class Simulation:
 
     Args:
       model: the MTP model (its device and dtype are the run's).
-      max_neighbors: neighbor width J (:meth:`run` grows it on overflow).
+      max_neighbors: neighbor width J (:meth:`_recover` grows it on overflow).
       skin: Verlet skin [A]; lists are built at cutoff + skin.
       steps_per_rebuild: steps per neighbor rebuild.
       compute_virial: tally the virial every step (LAMMPS vflag). The
@@ -87,10 +94,10 @@ class Simulation:
         cell can shrink by (grid_margin-1) before the grid, fixed for a
         :meth:`run_async` or :meth:`run_fused` call, trips the geometry flag.
 
-    ``retries`` counts the block attempts that :meth:`run` (and
-    ``al.driver.run_with_extrapolation``) discarded, by cause: ``"overflow"``
-    (J grown) and ``"stale"`` (the block halved); LAMMPS reports the second
-    kind as "Dangerous builds".
+    ``retries`` counts the attempts that :meth:`_recover` discarded (in
+    :meth:`run`, ``al.driver.run_with_extrapolation`` and FIRE), by cause:
+    ``"overflow"`` (J grown) and ``"stale"`` (the block halved); LAMMPS
+    reports the second kind as "Dangerous builds".
     """
 
     model: MTPModel
@@ -144,34 +151,27 @@ class Simulation:
         )
 
     def refresh_forces(self, state: MDState, nl: SortedNeighborList, *, ensemble: str = "nve"):
+        """The state's forces, energy and virial recomputed against `nl`, in
+        user order. No driver calls it: a block refreshes in sorted space
+        (:meth:`steps` with ``refresh=True``)."""
         force_fn = self.force_fn_window(nl, state.types, self._virial_for(ensemble))
         return itg._with_forces(state, force_fn)
 
     def block(
-        self,
-        state: MDState,
-        aux,
-        *,
-        grid: tuple,
-        max_neighbors: int,
-        ensemble: str = "nve",
-        n_steps: int = 10,
-        dt: float = 0.001,
-        temperature: float = 300.0,
-        pressure: float = 0.0,
-        tdamp: float = 0.1,
-        pdamp: float = 1.0,
-        refresh: bool = False,
+        self, state: MDState, aux, *, grid: tuple, max_neighbors: int, n_steps: int = 10,
+        refresh: bool = False, first: int = 0, return_nl: bool = False, **kw,
     ):
-        """One block: rebuild, then `n_steps` steps against the list.
-        `refresh` recomputes the incoming forces first (they are stale or
-        zero: the first block, or a retry). Returns (state, aux, overflow,
-        stale), the flags as device scalars."""
-        nl = self.rebuild(state, grid=grid, max_neighbors=max_neighbors)
-        state, aux, stale = self._scan_with_nl(
-            state, aux, nl, refresh=refresh, ensemble=ensemble, n_steps=n_steps, dt=dt,
-            temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
-        )
+        """One block in an ``md.block`` span: rebuild, then :meth:`steps`
+        against the list (`refresh` and `kw` go to it). Every driver steps
+        through here. The span's arguments are the block's first step within
+        its run (`first`; a retried block repeats it), J and its steps.
+        Returns (state, aux, overflow, stale[, nl]), the flags as device
+        scalars."""
+        with span("md.block", f"first={first} J={max_neighbors} steps={n_steps}"):
+            nl = self.rebuild(state, grid=grid, max_neighbors=max_neighbors)
+            state, aux, stale = self.steps(state, aux, nl, n_steps=n_steps, refresh=refresh, **kw)
+        if return_nl:
+            return state, aux, nl.overflow, stale, nl
         return state, aux, nl.overflow, stale
 
     @staticmethod
@@ -184,29 +184,6 @@ class Simulation:
             masses=state.masses[perm],
             types=state.types[perm],
         )
-
-    def _scan_with_nl(self, state, aux, nl, *, refresh=False, **kw):
-        """Steps against a frozen list, integrating in SORTED space (one
-        permute in and one out per block; the integrators are
-        permutation-equivariant). Force-only steps; the energy (K4) runs
-        once at the end of the block. Returns (state, aux, stale) with
-        `state` back in user order."""
-        with span("md.steps"):
-            force_fn = self.force_fn_window(
-                nl, state.types, self._virial_for(kw["ensemble"]),
-                sorted_io=True, compute_energy=False,
-            )
-            state = self._permute_state(state, nl.order)
-            if refresh:
-                state = itg._with_forces(state, force_fn)
-            state, aux, stale = self._scan_steps(
-                state, aux, force_fn, ref_positions=nl.reference_positions[nl.order],
-                ref_cell=nl.reference_cell, **kw,
-            )
-            state = dataclasses.replace(
-                state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
-            )
-            return self._permute_state(state, nl.inv_order), aux, stale
 
     def _scan_steps(
         self, state, aux, force_fn, *, ensemble, n_steps, dt, temperature, pressure,
@@ -263,26 +240,60 @@ class Simulation:
         return state, aux, stale
 
     def steps(
-        self,
-        state: MDState,
-        aux,
-        nl,
-        *,
-        ensemble: str = "nve",
-        n_steps: int = 10,
-        dt: float = 0.001,
-        temperature: float = 300.0,
-        pressure: float = 0.0,
-        tdamp: float = 0.1,
-        pdamp: float = 1.0,
+        self, state: MDState, aux, nl, *, ensemble: str = "nve", n_steps: int = 10,
+        dt: float = 0.001, temperature: float = 300.0, pressure: float = 0.0,
+        tdamp: float = 0.1, pdamp: float = 1.0, refresh: bool = False, scan=None,
     ):
-        """`n_steps` integrator steps with a frozen list (pairs with
-        :meth:`rebuild` on the async path). Returns (state, aux, stale):
-        `stale` is a device bool set if an atom outran the skin."""
-        return self._scan_with_nl(
-            state, aux, nl, ensemble=ensemble, n_steps=n_steps, dt=dt,
-            temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
-        )
+        """`n_steps` steps with the frozen list `nl`, in an ``md.steps`` span,
+        in SORTED space: one permute in and one out (the integrators are
+        permutation-equivariant), force-only steps (K1, K2, K3) and the
+        energy (K4) once at the end. `refresh` recomputes the incoming
+        forces first (they are stale or zero: a run's first block, or a
+        retry). ``scan(state, aux, force_fn, n_steps=, ref_positions=,
+        ref_cell=)`` runs the steps and returns (state, aux, stale); by
+        default the ensemble's integrator (:meth:`_scan_steps`), while FIRE
+        passes its iterations. Returns (state, aux, stale) with `state` back
+        in user order: `stale` a device bool set if an atom outran the
+        skin."""
+        if scan is None:
+            scan = functools.partial(self._scan_steps, ensemble=ensemble, dt=dt,
+                                     temperature=temperature, pressure=pressure, tdamp=tdamp,
+                                     pdamp=pdamp)
+        with span("md.steps"):
+            force_fn = self.force_fn_window(
+                nl, state.types, self._virial_for(ensemble), sorted_io=True,
+                compute_energy=False,
+            )
+            state = self._permute_state(state, nl.order)
+            if refresh:
+                state = itg._with_forces(state, force_fn)
+            state, aux, stale = scan(
+                state, aux, force_fn, n_steps=n_steps,
+                ref_positions=nl.reference_positions[nl.order], ref_cell=nl.reference_cell,
+            )
+            state = dataclasses.replace(
+                state, potential_energy=force_fn.energy_fn(state.positions, state.cell)
+            )
+            return self._permute_state(state, nl.inv_order), aux, stale
+
+    def _queue(self, state, aux, n_steps, *, grid, max_neighbors, steps_per_block, refresh,
+               **kw):
+        """Blocks of `steps_per_block` queued back to back with no host read:
+        the one loop of :meth:`run_async` and :meth:`run_fused`. Only the
+        first block refreshes, if `refresh`. Returns (state, aux, overflow,
+        stale, nl): the flags OR-ed on the device, the last block's list."""
+        dev = state.positions.device
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        stale = torch.zeros((), dtype=torch.bool, device=dev)
+        nl = None
+        for first in range(0, n_steps, steps_per_block):
+            state, aux, o, s, nl = self.block(
+                state, aux, grid=grid, max_neighbors=max_neighbors,
+                n_steps=min(steps_per_block, n_steps - first), refresh=refresh and first == 0,
+                first=first, return_nl=True, **kw,
+            )
+            overflow, stale = overflow | o, stale | s
+        return state, aux, overflow, stale, nl
 
     def run_async(
         self,
@@ -299,41 +310,26 @@ class Simulation:
         return_nl: bool = False,
         refresh: bool = True,
     ):
-        """Throughput path: rebuilds and step blocks queued back to back,
-        forces carried across blocks, no host read after the cell's, until
-        the caller reads the flags.
+        """Throughput path: blocks of ``steps_per_rebuild`` queued back to
+        back at ``max_neighbors``, forces carried across blocks, no host read
+        after the cell's, until the caller reads the flags.
 
         Returns (state, aux, flags[, nl]): `flags` is a :class:`RunFlags` of
-        device scalars. `refresh=False` trusts the incoming forces (and, for
-        NPT, the virial) to be consistent with the positions. Under NPT the
-        bin grid comes from the initial cell and the neighbor build flags
-        `overflow` if the cell shrinks past the grid's validity.
+        device scalars, `nl` the last block's list. `refresh` recomputes the
+        first block's incoming forces; False trusts them (and, for NPT, the
+        virial) to be consistent with the positions. The bin grid comes
+        from the initial cell: under NPT the neighbor build flags `overflow`
+        if the cell shrinks past the grid's validity.
         """
-        _check_ensemble(ensemble)
-        if aux is None:
-            aux = _default_aux(ensemble, state)
+        aux = _default_aux(ensemble, state, aux)
         check_cell(read_cell(state.cell), self.model.cutoff + self.skin)
-        grid = self.grid_for(state.cell)
-        kw = dict(ensemble=ensemble, dt=dt, temperature=temperature, pressure=pressure,
-                  tdamp=tdamp, pdamp=pdamp)
-        dev = state.positions.device
-        overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        stale_any = torch.zeros((), dtype=torch.bool, device=dev)
-        done = 0
-        first = refresh
-        nl = None
-        while done < n_steps:
-            k = min(self.steps_per_rebuild, n_steps - done)
-            with span("md.block", _block_args(done, self.max_neighbors, k)):
-                nl = self.rebuild(state, grid=grid, max_neighbors=self.max_neighbors)
-                overflow = overflow | nl.overflow
-                if first:
-                    state = self.refresh_forces(state, nl, ensemble=ensemble)
-                    first = False
-                state, aux, stale = self.steps(state, aux, nl, n_steps=k, **kw)
-                stale_any = stale_any | stale
-            done += k
-        flags = RunFlags(overflow=overflow, stale=stale_any)
+        state, aux, overflow, stale, nl = self._queue(
+            state, aux, n_steps, grid=self.grid_for(state.cell),
+            max_neighbors=self.max_neighbors, steps_per_block=self.steps_per_rebuild,
+            refresh=refresh, ensemble=ensemble, dt=dt, temperature=temperature,
+            pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+        )
+        flags = RunFlags(overflow=overflow, stale=stale)
         if return_nl:
             return state, aux, flags, nl
         return state, aux, flags
@@ -355,28 +351,22 @@ class Simulation:
         pdamp: float = 1.0,
     ):
         """`n_blocks` x (rebuild + `steps_per_block` steps) back to back with
-        no host read, as the JAX package's one compiled program does. No
-        block refreshes its incoming forces: the first block integrates from
+        no host read, as the JAX package's one compiled program does: the
+        loop of :meth:`run_async` on a given grid and width. No block
+        refreshes its incoming forces: the first block integrates from
         ``state.forces`` as given. Overflow and staleness are OR-ed into one
         device flag, returned at the end (re-run with more capacity or a
-        shorter block if set). Under NPT the grid stays `grid`; the neighbor build
-        flags overflow if the cell shrinks past its validity.
+        shorter block if set). Under NPT the grid stays `grid`; the neighbor
+        build flags overflow if the cell shrinks past its validity.
 
         Returns (state, aux, flag)."""
-        _check_ensemble(ensemble)
-        if aux is None:
-            aux = _default_aux(ensemble, state)
-        flag = torch.zeros((), dtype=torch.bool, device=state.positions.device)
-        for b in range(n_blocks):
-            with span("md.block", _block_args(b * steps_per_block, max_neighbors,
-                                              steps_per_block)):
-                state, aux, ovf, stale = self.block(
-                    state, aux, grid=grid, max_neighbors=max_neighbors, ensemble=ensemble,
-                    n_steps=steps_per_block, dt=dt, temperature=temperature,
-                    pressure=pressure, tdamp=tdamp, pdamp=pdamp,
-                )
-                flag = flag | ovf | stale
-        return state, aux, flag
+        aux = _default_aux(ensemble, state, aux)
+        state, aux, overflow, stale, _ = self._queue(
+            state, aux, n_blocks * steps_per_block, grid=grid, max_neighbors=max_neighbors,
+            steps_per_block=steps_per_block, refresh=False, ensemble=ensemble, dt=dt,
+            temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+        )
+        return state, aux, overflow | stale
 
     def run(
         self,
@@ -396,13 +386,9 @@ class Simulation:
         """Run `n_steps`, recovering from tripped blocks.
 
         Each block is one :meth:`block` on a grid re-derived from the current
-        cell, then one host read of its two flags. On overflow the block is
-        discarded and retried with J grown x1.5 + 8 (rounded up to a
-        multiple of 8); at J >= 1024 it raises (not a list-width problem).
-        On staleness it is retried with `steps_per_rebuild` halved; at 1 it
-        raises (the system diverges or the skin is too small). Both changes
-        stay on this Simulation, and each discarded block counts in
-        ``retries``.
+        cell, then one host read of its two flags. A tripped block is
+        discarded and retried after :meth:`_recover`: a wider list on
+        overflow, a shorter block on staleness.
 
         `observer(state)` is called after every accepted block (host side:
         thermo output, dumps, hooks). `refresh=False` trusts the incoming
@@ -411,50 +397,51 @@ class Simulation:
 
         Returns (state, aux).
         """
-        _check_ensemble(ensemble)
-        if aux is None:
-            aux = _default_aux(ensemble, state)
+        aux = _default_aux(ensemble, state, aux)
         check_cell(read_cell(state.cell), self.model.cutoff + self.skin)
         done = 0
         while done < n_steps:
             k = min(self.steps_per_rebuild, n_steps - done)
-            grid = self.grid_for(state.cell)
-            with span("md.block", _block_args(done, self.max_neighbors, k)):
-                new_state, new_aux, overflow, stale = self.block(
-                    state, aux, grid=grid, max_neighbors=self.max_neighbors,
-                    ensemble=ensemble, n_steps=k, dt=dt, temperature=temperature,
-                    pressure=pressure, tdamp=tdamp, pdamp=pdamp, refresh=refresh,
-                )
+            new_state, new_aux, overflow, stale = self.block(
+                state, aux, grid=self.grid_for(state.cell), max_neighbors=self.max_neighbors,
+                n_steps=k, refresh=refresh, first=done, ensemble=ensemble, dt=dt,
+                temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+            )
             with span("md.read_flags"):
                 overflow, stale = torch.stack([overflow, stale]).tolist()
-            if overflow:
-                if self.max_neighbors >= 1024:
-                    raise RuntimeError(
-                        "neighbor overflow persists at max_neighbors="
-                        f"{self.max_neighbors}: not a list-width problem. "
-                        "Check bin_capacity vs the local density, the grid "
-                        "geometry, and the system for collapse/overlap."
-                    )
-                grown = int(self.max_neighbors * 1.5) + 8
-                self.max_neighbors = -(-grown // 8) * 8
-                self.retries["overflow"] += 1
-                continue
-            if stale:
-                if self.steps_per_rebuild <= 1:
-                    raise RuntimeError(
-                        "Verlet staleness at steps_per_rebuild=1: an atom "
-                        f"moved > skin/2 ({self.skin / 2:.3f} A) in a single "
-                        f"dt={dt} step. The system is diverging or the skin "
-                        "is too small: check dt/forces or increase skin."
-                    )
-                self.steps_per_rebuild = max(1, self.steps_per_rebuild // 2)
-                self.retries["stale"] += 1
+            if self._recover(overflow, stale):
                 continue
             state, aux = new_state, new_aux
             done += k
             if observer is not None:
                 observer(state)
         return state, aux
+
+    def _recover(self, overflow: bool, stale: bool, *, during: str = "") -> bool:
+        """The recovery rule of a block attempt from its two flags (host
+        bools), shared by :meth:`run`, the AL driver and FIRE: True if the
+        attempt is to be discarded. On overflow J grows
+        (:func:`~mtp_tpu_torch.ops.neighbors.grown_width`, which raises at
+        J >= 1024); on staleness `steps_per_rebuild` halves, and at 1 it
+        raises (the system diverges or the skin is too small). Both changes
+        stay on this Simulation, and each discarded attempt counts in
+        ``retries``. `during` names the caller's run in the messages."""
+        if overflow:
+            self.max_neighbors = grown_width(self.max_neighbors, during)
+            self.retries["overflow"] += 1
+            return True
+        if not stale:
+            return False
+        if self.steps_per_rebuild <= 1:
+            where = f" {during}" if during else ""
+            raise RuntimeError(
+                f"Verlet staleness at steps_per_rebuild=1{where}: an atom moved > skin/2 "
+                f"({self.skin / 2:.3f} A) in a single step. The system is diverging or the "
+                "skin is too small: check dt/forces or increase skin."
+            )
+        self.steps_per_rebuild //= 2
+        self.retries["stale"] += 1
+        return True
 
     def minimize(self, state: MDState, **kw):
         """FIRE 2.0 relaxation (LAMMPS ``minimize``) on this simulation's
@@ -472,17 +459,14 @@ def read_cell(cell) -> np.ndarray:
         return cell.detach().cpu().numpy()
 
 
-def _block_args(first: int, max_neighbors: int, n_steps: int) -> str:
-    """The ``md.block`` span's arguments: the block's first step within the
-    call, its list width J and its steps (a retried block repeats its first
-    step)."""
-    return f"first={first} J={max_neighbors} steps={n_steps}"
-
-
-def _default_aux(ensemble, state):
-    """The integrator state a run starts from when the caller gives none:
-    zeroed chains and barostat, or for Langevin a generator on the state's
-    device seeded 0. NVE carries none (None)."""
+def _default_aux(ensemble, state, aux=None):
+    """A run's integrator state after checking its ensemble: `aux`, or when
+    None the one it starts from: zeroed chains and barostat, or for
+    Langevin a generator on the state's device seeded 0. NVE carries none
+    (None)."""
+    _check_ensemble(ensemble)
+    if aux is not None:
+        return aux
     dtype, dev = state.positions.dtype, state.positions.device
     if ensemble == "nvt":
         return itg.nhc_init(dtype, dev)

@@ -101,6 +101,21 @@ def check_cell(cell, cutoff: float) -> None:
         )
 
 
+def grown_width(max_neighbors: int, during: str = "") -> int:
+    """The list width J after an overflow: x1.5 + 8, rounded up to a
+    multiple of 8 (16 -> 32 -> 56 -> 96). At J >= 1024 it raises: an
+    overflow there is density or geometry, not list width. `during` names
+    the caller's run in the message ("during minimization")."""
+    if max_neighbors >= 1024:
+        where = f" {during}" if during else ""
+        raise RuntimeError(
+            f"neighbor overflow persists at max_neighbors={max_neighbors}{where}: not a "
+            "list-width problem. Check bin_capacity vs the local density, the grid "
+            "geometry, and the system for collapse/overlap."
+        )
+    return -(-(int(max_neighbors * 1.5) + 8) // 8) * 8
+
+
 def grid_shape(cell, cutoff: float) -> tuple:
     """Static bin-grid shape: as many bins as fit with width >= cutoff."""
     w = perpendicular_widths(cell)

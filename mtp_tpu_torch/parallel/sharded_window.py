@@ -61,6 +61,7 @@ from mtp_tpu_torch.ops.md_step import verlet_top2
 from mtp_tpu_torch.ops.neighbors import (
     build_sorted_neighbor_list,
     grid_shape,
+    grown_width,
     perpendicular_widths,
 )
 from mtp_tpu_torch.ops.window_disp import cell_product, inverse_cell
@@ -97,11 +98,11 @@ class ShardedSimulation:
     """Host-side controller of one rank's share of multi-device MD.
 
     Every rank of `comm` builds one with the same arguments and makes the
-    same calls. Two drivers, a host loop of (rebuild, steps) per Verlet
-    block each: :meth:`run_async` (no host read; flags accumulate on the
-    device, the throughput path) and :meth:`run` (one flag read per block;
-    a tripped block is discarded and retried after growing the capacity
-    that tripped).
+    same calls. Two drivers over one loop of (rebuild, steps) per Verlet
+    block, :meth:`_segment`: :meth:`run_async` (no host read; flags
+    accumulate on the device, the throughput path) and :meth:`run` (one
+    flag read per block; a tripped block is discarded and retried after
+    :meth:`_recover` grows the capacity that tripped).
 
     Args:
       model: the MTP model (its device and dtype are the run's).
@@ -452,28 +453,33 @@ class ShardedSimulation:
 
     # ------------------------------------------------------------- runs
 
+    def _segment(self, state: ShardedState, n_steps: int, *, refresh: bool, **kw):
+        """(rebuild, steps) per Verlet block for `n_steps` steps, queued with
+        no host read: the one loop of :meth:`run_async`, :meth:`run` and the
+        sharded AL driver. Only the first block refreshes, if `refresh`;
+        `kw` go to :meth:`steps`. Returns (state, ctx, flags): the last
+        block's context and the five flags of :class:`ShardedRunFlags`
+        OR-ed on the device into one (5,) bool tensor."""
+        flags = torch.zeros(5, dtype=torch.bool, device=state.positions.device)
+        ctx = None
+        for first in range(0, n_steps, self.steps_per_rebuild):
+            state, ctx, f4 = self.rebuild(state)
+            state, stale = self.steps(state, ctx, min(self.steps_per_rebuild, n_steps - first),
+                                      refresh=refresh and first == 0, **kw)
+            flags = flags | torch.stack([*f4, stale])
+        return state, ctx, flags
+
     def run_async(
         self, state: ShardedState, n_steps: int, *, ensemble: str = "nve", dt: float = 0.001,
         temperature: float = 300.0, pressure: float = 0.0, tdamp: float = 0.1,
         pdamp: float = 1.0, refresh: bool = True,
     ):
-        """Throughput path: (rebuild, steps) per Verlet block with no host
-        read; the flags OR on the device and come back as
+        """Throughput path: one :meth:`_segment`; the flags come back as
         :class:`ShardedRunFlags` (reading one waits for the device). A
         tripped run is flagged, never silently wrong: :meth:`run` recovers."""
-        dev = state.positions.device
-        flags = torch.zeros(5, dtype=torch.bool, device=dev)
-        done = 0
-        first = refresh
-        while done < n_steps:
-            k = min(self.steps_per_rebuild, n_steps - done)
-            state, ctx, f4 = self.rebuild(state)
-            state, stale = self.steps(state, ctx, k, ensemble=ensemble, dt=dt,
-                                      temperature=temperature, pressure=pressure, tdamp=tdamp,
-                                      pdamp=pdamp, refresh=first)
-            flags = flags | torch.stack([*f4, stale])
-            first = False
-            done += k
+        state, _, flags = self._segment(state, n_steps, refresh=refresh, ensemble=ensemble,
+                                        dt=dt, temperature=temperature, pressure=pressure,
+                                        tdamp=tdamp, pdamp=pdamp)
         return state, ShardedRunFlags(*flags.unbind())
 
     def _recover(self, flags, cell=None) -> str:
@@ -497,14 +503,7 @@ class ShardedSimulation:
                 self._reconfigure()
                 return f"grid -> {ng} (cell changed)"
         if nbr:
-            if self.max_neighbors >= 1024:
-                raise RuntimeError(
-                    f"neighbor overflow persists at max_neighbors={self.max_neighbors}: not a "
-                    "list-width problem. Check bin_capacity vs the local density, the grid "
-                    "geometry, and the system for collapse/overlap."
-                )
-            grown = int(self.max_neighbors * 1.5) + 8
-            self.max_neighbors = -(-grown // 8) * 8
+            self.max_neighbors = grown_width(self.max_neighbors)
             self._reconfigure()
             return f"max_neighbors -> {self.max_neighbors}"
         if halo:
@@ -537,7 +536,7 @@ class ShardedSimulation:
                 "system is diverging, the skin is too small, or the domains are too thin: "
                 "check dt/forces or increase skin/capacity."
             )
-        self.steps_per_rebuild = max(1, self.steps_per_rebuild // 2)
+        self.steps_per_rebuild //= 2
         return f"steps_per_rebuild -> {self.steps_per_rebuild}"
 
     def run(
@@ -545,29 +544,27 @@ class ShardedSimulation:
         temperature: float = 300.0, pressure: float = 0.0, tdamp: float = 0.1,
         pdamp: float = 1.0, refresh: bool = True, observer=None,
     ):
-        """Run `n_steps` with recovery: one read of the five flags (and the
-        cell) per block; a tripped block is DISCARDED and retried after
-        :meth:`_recover`. Every rank reads the same flags, so every rank
-        takes the same branch. Returns (state, clear flags); raises where no
-        recovery can help.
+        """Run `n_steps` with recovery: one one-block :meth:`_segment`, then
+        one read of its five flags (and the cell), per block; a tripped
+        block is DISCARDED and retried after :meth:`_recover`. Every rank
+        reads the same flags, so every rank takes the same branch. Returns
+        (state, clear flags); raises where no recovery can help.
 
         `observer(state)` runs after every committed block, on every rank."""
         done = 0
-        first = refresh
         while done < n_steps:
             k = min(self.steps_per_rebuild, n_steps - done)
-            prev = state
-            new_state, ctx, f4 = self.rebuild(state)
-            new_state, stale = self.steps(new_state, ctx, k, ensemble=ensemble, dt=dt,
-                                          temperature=temperature, pressure=pressure,
-                                          tdamp=tdamp, pdamp=pdamp, refresh=first)
-            flags = torch.stack([*f4, stale]).tolist()
+            # a retried first block refreshes again; a later one starts from
+            # the forces of the last committed block
+            new_state, _, flags = self._segment(
+                state, k, refresh=refresh and done == 0, ensemble=ensemble, dt=dt,
+                temperature=temperature, pressure=pressure, tdamp=tdamp, pdamp=pdamp,
+            )
+            flags = flags.tolist()
             if any(flags):
-                self._recover(flags, cell=prev.cell.detach().cpu().numpy())
-                state = prev  # discard the tripped block
+                self._recover(flags, cell=state.cell.detach().cpu().numpy())
                 continue
             state = new_state
-            first = False
             done += k
             if observer is not None:
                 observer(state)

@@ -33,6 +33,9 @@ from mtp_tpu.md.simulation import Simulation as JaxSimulation
 from mtp_tpu.md.state import init_state as init_jax
 from mtp_tpu.md.state import thermalize as thermalize_jax
 from mtp_tpu.models.mtp import MTPModel as JaxModel
+from mtp_tpu_torch.al.driver import ExtrapolationMonitor, run_with_extrapolation
+from mtp_tpu_torch.al.grades import candidate_vectors
+from mtp_tpu_torch.al.maxvol import build_mvs
 from mtp_tpu_torch.io.lammps_data import read_lammps_data, write_lammps_data
 from mtp_tpu_torch.md import integrators as itg
 from mtp_tpu_torch.md.minimize import fire_minimize
@@ -44,7 +47,8 @@ from mtp_tpu_torch.md.output import (
 )
 from mtp_tpu_torch.md.simulation import Simulation, make_lattice
 from mtp_tpu_torch.md.state import init_state, kinetic_energy
-from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+from mtp_tpu_torch.models.mtp import MTPModel
+from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape, grown_width
 from mtp_tpu_torch.utils.convert import model_from_jax
 
 from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
@@ -123,6 +127,72 @@ def test_run_raises_on_staleness_at_one_step_per_rebuild(models):
     with pytest.raises(RuntimeError, match="steps_per_rebuild=1"):
         sim.run(st, 4, ensemble="nve", dt=0.001)
     assert sim.steps_per_rebuild == 1
+
+
+def test_grown_width_steps_and_cap():
+    """x1.5 + 8, rounded up to a multiple of 8, and a raise at J >= 1024."""
+    widths = [16]
+    for _ in range(3):
+        widths.append(grown_width(widths[-1]))
+    assert widths == [16, 32, 56, 96]
+    assert grown_width(8) == 24 and grown_width(1016) == 1536
+    with pytest.raises(RuntimeError, match="max_neighbors=1024 during AL run: not a list-width"):
+        grown_width(1024, "during AL run")
+
+
+@pytest.fixture(scope="module")
+def al_model(mtp_level8):
+    """The level-8 potential with an MVS from two perturbed 108-atom boxes."""
+    model = MTPModel.from_data(mtp_level8, device="cpu", dtype=F64)
+    rows = []
+    for k, sigma in enumerate((0.05, 0.1)):
+        pos, types, cell = make_lattice("fcc", 4.0, (3, 3, 3))
+        pos = pos + np.random.default_rng(100 + k).normal(0, sigma, pos.shape)
+        p, c = torch.as_tensor(pos), torch.as_tensor(cell)
+        nl = build_neighbor_list(p, c, model.cutoff, max_neighbors=64,
+                                 grid=grid_shape(cell, model.cutoff))
+        rows.append(candidate_vectors(model, p, torch.as_tensor(types), nl.idx, c)[0].numpy())
+    mvs = build_mvs(np.concatenate(rows), mode="neighborhood")
+    return MTPModel.from_data(dataclasses.replace(mtp_level8, mvs=mvs), device="cpu", dtype=F64)
+
+
+_DRIVERS = {
+    "run": lambda sim, st: sim.run(st, 2, ensemble="nve", dt=0.001),
+    "run_with_extrapolation": lambda sim, st: run_with_extrapolation(
+        sim, ExtrapolationMonitor(sim.model), st, 2, al_every=2, dt=0.001),
+    "fire_minimize": lambda sim, st: fire_minimize(sim, st, ftol=0.0, max_steps=2),
+}
+
+
+@pytest.mark.parametrize("driver", tuple(_DRIVERS))
+def test_recovery_rule_is_shared(al_model, driver):
+    """From J = 8 on the 864-atom box each driver grows J through
+    ``Simulation._recover`` to the first width at which the starting list
+    fits, counting every growth in ``sim.retries``. With a rebuild that
+    always overflows, each raises once J has grown past 1024."""
+    st = _state(*_thermal(300.0, 5, reps=(6, 6, 6), rattle=0.05))
+    sim = Simulation(al_model, max_neighbors=8, skin=0.6, steps_per_rebuild=2,
+                     compute_virial=False)
+    grid, want, growths = sim.grid_for(st.cell), 8, 0
+    while bool(sim.rebuild(st, grid=grid, max_neighbors=want).overflow):
+        want, growths = grown_width(want), growths + 1
+    assert growths >= 2
+    _DRIVERS[driver](sim, st)
+    assert sim.max_neighbors == want
+    assert sim.retries == {"overflow": growths, "stale": 0}
+
+    sim = Simulation(al_model, max_neighbors=8, skin=0.6, steps_per_rebuild=2,
+                     compute_virial=False)
+    build = sim.rebuild
+
+    def overflowing(state, *, grid, max_neighbors):
+        nl = build(state, grid=grid, max_neighbors=want)
+        return dataclasses.replace(nl, overflow=torch.ones_like(nl.overflow))
+
+    sim.rebuild = overflowing
+    with pytest.raises(RuntimeError, match="not a list-width problem"):
+        _DRIVERS[driver](sim, st)
+    assert sim.max_neighbors == 1104 and sim.retries["overflow"] == 9
 
 
 @pytest.mark.parametrize("driver", ("run", "run_async", "run_fused"))

@@ -21,7 +21,7 @@ from mtp_tpu_torch.io.basis_gen import make_mtp
 from mtp_tpu_torch.md.simulation import Simulation, make_lattice
 from mtp_tpu_torch.md.state import init_state
 from mtp_tpu_torch.models.mtp import MTPModel
-from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape
+from mtp_tpu_torch.ops.neighbors import build_neighbor_list, grid_shape, grown_width
 from mtp_tpu_torch.utils import tracing, units
 
 from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
@@ -175,10 +175,10 @@ def test_no_session_enters_no_span(alloy, al_model, monkeypatch):
 
 
 def _grown(j0, j1):
-    """Growth steps of ``Simulation.run`` from J = j0 to j1."""
+    """Growth steps of ``grown_width`` from J = j0 to j1."""
     n = 0
     while j0 < j1:
-        j0 = -(-(int(j0 * 1.5) + 8) // 8) * 8
+        j0 = grown_width(j0)
         n += 1
     assert j0 == j1
     return n
