@@ -17,8 +17,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    J = 64, skin 0.6): 60 NVE steps at steps_per_rebuild=10, then a timed
    ``run_async`` of 210 steps at steps_per_rebuild=30. Both flags clear,
    finite positions and energies, every kernel launched and no plain
-   version called during the run: K9 twice a step, K10 once, K8 once a
-   rebuild.
+   version called during the run: K9 twice a step, K10 once, K8 and K11
+   once a rebuild.
 5. Each kernel at the main path's shapes against its plain version, with
    its time and the plain version's time (CUDA events), its bound (the
    larger of its bytes over 3.35 TB/s and its fp32 operations on these
@@ -31,14 +31,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    right after phase 7: a profiler session slows the host-bound runs that
    follow it in the same process, and phase 7 times two of them against
    each other; a window that loses kernel events fails the run.
-5b. The neighbor list's row phase (K8) on the bin-sorted fcc box at a =
-   3.8 A of 32,000 and of 131,072 atoms (cutoff + skin 5.6 A, J = 64): its
-   rows and largest count bit-equal to its plain twin's, and a whole sorted
-   build with K8 bit-equal (rows, mirror, order) to one with the twin; its ms
-   and the twin's, its bound (45 operations a candidate test; every input
-   and output byte once) and share of it (device ms from the stage split),
-   one launch per build, and the build's ms and peak device memory with K8
-   and with the twin.
+5b. The neighbor list's bin sort and cell table (K11) and row phase (K8)
+   on the jittered fcc box at a = 3.8 A of 32,000 and of 131,072 atoms
+   (cutoff + skin 5.6 A, J = 64): K11's outputs bit-equal to its plain
+   twin's, K8's rows and largest count to its twin's on K11's bin-sorted
+   rows, and a whole sorted build with the kernels bit-equal (rows, mirror,
+   order) to one with K8's twin and to one with K11's; each kernel's ms and
+   its twin's, its bound (K8: 45 operations a candidate test; both: every
+   input and output byte once) and share of it (device ms from the stage
+   split), one call of each per build, and the build's ms and peak device
+   memory with the kernels and with K8's twin.
 5c. The MD step's kernels, K9 md_step (the kick and drift, and the closing
    kick with the step count) and K10 verlet_top2 (the Verlet check), on
    random fp32 arrays of 32,000 and 131,072 atoms: outputs bit-equal to
@@ -126,7 +128,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    single-device port at the same positions; the halo size, the migration
    counts and ms per step. Each rank then holds K1-K5 against their plain
    twins on its own block rows (N = C + 2H, padding rows in the trash bin,
-   ghost rows masked as centers), at the kernel rows' limits.
+   ghost rows masked as centers), at the kernel rows' limits, and K11
+   bit-equal to its plain twin on the rank's extended set (its trash bin
+   holding the padding rows) with the rebuild's order.
 
 12. The long narrow box (``mtp_tpu_torch.parallel.sharded_md``'s
    row-gather API on the one sharded engine): the level-16 fp32 model on
@@ -622,6 +626,9 @@ def mvs_from(model64, boxes, cell, types, cutoff):
 # rint and subtractions, |d|^2 (5) and the test, as K1's per pair
 ROWS_BOXES = {"32k": (20, 20, 20), "131k": (32, 32, 32)}
 ROWS_CUT, ROWS_J, ROWS_OPS_PER_TEST = 5.6, 64, 45
+# every output of K11 (ops.neighbors.CellList)
+CELL_LIST_FIELDS = ("inv_cell", "positions", "bin3", "table", "counts", "overflow", "order",
+                    "inv_order")
 
 
 def rows_work(n, j, tests, table):
@@ -632,13 +639,27 @@ def rows_work(n, j, tests, table):
             12 * n + 24 * n + 8 * table.numel() + 8 * table.shape[0] + 2 * 36 + 4 * n * j + 4)
 
 
+def cell_list_bytes(n, table):
+    """Bytes of one sorted K11 call in fp32: the positions and the cell read
+    once; the inverse, order, inverse order, sorted positions, bin
+    coordinates, counts, table and flag written once."""
+    return 12 * n + 36 + 36 + 8 * n + 8 * n + 12 * n + 24 * n + 8 * table.shape[0] \
+        + 8 * table.numel() + 1
+
+
+# the stage split's kernels of each kernel's rows in phase 5b
+ROWS_STAGES = {"neighbor_rows": ("neighbor_rows_kernel",), "cell_list": ("cell_list_", "Memset")}
+
+
 def neighbor_rows_phase(dev, card):
-    """Phase 5b: K8 against its plain twin on the MD path's inputs (the
-    bin-sorted box) at 32,000 and 131,072 atoms: rows and count bit-equal,
-    and whole sorted builds (rows, mirror, order, flag) with the kernel and
-    with the twin; K8's ms and the twin's (CUDA events), the builds' ms and
-    peak device memory above what was allocated before, K8 launches per
-    build. Returns ({tag: row}, {label: call} for `stage_ms`)."""
+    """Phase 5b: K11 and K8 against their plain twins on the MD path's
+    inputs at 32,000 and 131,072 atoms: K11's outputs, and K8's rows and
+    count on K11's bin-sorted rows, bit-equal; whole sorted builds (rows,
+    mirror, order, flag) with the kernels, with K8's twin and with K11's;
+    each kernel's ms and its twin's (CUDA events), the builds' ms and peak
+    device memory above what was allocated before, each kernel's calls per
+    build. Returns ({label: row}, {label: call} for `stage_ms`), labels
+    "<kernel name> <box>"."""
     import torch
 
     from mtp_tpu_torch.md.simulation import make_lattice
@@ -652,6 +673,7 @@ def neighbor_rows_phase(dev, card):
         torch_sync()
         return out, torch.cuda.max_memory_allocated(dev) - base
 
+    kernel_cell_list = nbm.cell_list
     rows, calls = {}, {}
     for tag, reps in ROWS_BOXES.items():
         pos, _, cell = make_lattice("fcc", 3.8, reps)
@@ -665,26 +687,40 @@ def neighbor_rows_phase(dev, card):
             return nbm.build_sorted_neighbor_list(p, c, ROWS_CUT, max_neighbors=ROWS_J,
                                                   grid=grid)
 
-        nbm.K8.launches = nbm.K8.plain_calls = 0
+        for k in (nbm.K8, nbm.K11):
+            k.launches = k.plain_calls = 0
         got, peak = build_peak(build)
-        per_build = nbm.K8.launches
-        check(nbm.K8.plain_calls == 0, f"{tag}: the build with K8 called its plain twin")
+        per_build = {k.name: k.launches for k in (nbm.K8, nbm.K11)}
+        check(nbm.K8.plain_calls == 0 and nbm.K11.plain_calls == 0,
+              f"{tag}: the build with K8 and K11 called a plain twin")
         kernel_rows = nbm.neighbor_rows
-        nbm.neighbor_rows = nbm.neighbor_rows_plain  # the builds with the plain twin
+        nbm.neighbor_rows = nbm.neighbor_rows_plain  # the builds with K8's plain twin
         try:
             want, plain_peak = build_peak(build)
             plain_build_ms = time_ms(build, 3)
         finally:
             nbm.neighbor_rows = kernel_rows
+        nbm.cell_list = nbm.cell_list_plain  # a build with K11's plain twin
+        try:
+            want11 = build()
+        finally:
+            nbm.cell_list = kernel_cell_list
         build_ms = time_ms(build, 20)
-        check(not bool(got.overflow) and not bool(want.overflow), f"{tag} row-phase overflow")
-        same = (torch.equal(got.idx, want.idx) and torch.equal(got.mirror, want.mirror)
-                and torch.equal(got.order, want.order))
-        check(same, f"{tag}: the build with K8 differs from the build with its plain twin")
+        check(not any(bool(b.overflow) for b in (got, want, want11)), f"{tag} build overflow")
+        for label, other in (("K8", want), ("K11", want11)):
+            same = (torch.equal(got.idx, other.idx) and torch.equal(got.mirror, other.mirror)
+                    and torch.equal(got.order, other.order))
+            check(same, f"{tag}: the build with the kernels differs from the build with "
+                        f"{label}'s plain twin")
 
-        ps = p[got.order].contiguous()
-        inv, bin3, table, counts, _ = nbm._cell_table(ps, c, ROWS_CUT, grid, None, None)
-        args = (ps, bin3, table, counts, c, inv.contiguous(), grid, ROWS_CUT, ROWS_J, n)
+        cl = nbm.cell_list(p, c, ROWS_CUT, grid, sort=True)
+        twin = nbm.cell_list_plain(p, c, ROWS_CUT, grid, sort=True)
+        torch_sync()
+        check(all(torch.equal(getattr(cl, f), getattr(twin, f)) for f in CELL_LIST_FIELDS),
+              f"{tag}: K11's outputs differ from its plain twin's")
+        check(torch.equal(cl.order, got.order), f"{tag}: K11 alone differs from the build's order")
+        table, bin3 = cl.table, cl.bin3
+        args = (cl.positions, bin3, table, cl.counts, c, cl.inv_cell, grid, ROWS_CUT, ROWS_J, n)
         idx, count = nbm.neighbor_rows(*args)
         idx_p, count_p = nbm.neighbor_rows_plain(*args)
         torch_sync()
@@ -705,8 +741,8 @@ def neighbor_rows_phase(dev, card):
         row = dict(
             name=nbm.K8.name, route="cuda", source=nbm.K8.source, replaces=nbm.K8.replaces,
             atoms=n, grid=list(grid), cap=table.shape[1], candidate_tests=tests,
-            max_count=int(count), launches_per_build=per_build, max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            max_count=int(count), launches_per_build=per_build[nbm.K8.name], max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", operations=ops,
             bytes=nbytes, build_ms=build_ms, plain_build_ms=plain_build_ms,
             build_peak_bytes=peak, plain_build_peak_bytes=plain_peak, library_ms=None,
@@ -716,11 +752,31 @@ def neighbor_rows_phase(dev, card):
               f"bit-equal to the plain twin, and the whole build's rows, mirror and order; "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); "
-              f"{per_build} launch per build; build {build_ms:.4f} ms (with the twin "
-              f"{plain_build_ms:.4f}), peak {peak:,} B (with the twin {plain_peak:,} B) on {card}")
-        check(per_build == 1, f"{tag}: K8 launched {per_build} times in one build")
-        rows[tag] = row
+              f"{per_build} calls per build; build {build_ms:.4f} ms (with K8's twin "
+              f"{plain_build_ms:.4f}), peak {peak:,} B (with K8's twin {plain_peak:,} B) on "
+              f"{card}")
+        check(all(v == 1 for v in per_build.values()),
+              f"{tag}: K8 and K11 called {per_build} times in one build")
+        rows[f"neighbor_rows {tag}"] = row
         calls[f"neighbor_rows {tag}"] = lambda args=args: nbm.neighbor_rows(*args)
+
+        def sort(p=p, c=c, grid=grid):
+            return nbm.cell_list(p, c, ROWS_CUT, grid, sort=True)
+
+        nbytes = cell_list_bytes(n, table)
+        ms = time_ms(sort, 20)
+        plain_ms = time_ms(lambda: nbm.cell_list_plain(p, c, ROWS_CUT, grid, sort=True), 3)
+        rows[f"cell_list {tag}"] = dict(
+            name=nbm.K11.name, route="cuda", source=nbm.K11.source, replaces=nbm.K11.replaces,
+            atoms=n, grid=list(grid), cap=table.shape[1],
+            launches_per_build=per_build[nbm.K11.name], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+            operations=None, bytes=nbytes, library_ms=None,
+        )
+        print(f"  cell_list {tag}: {n} atoms, grid {grid}, cap {table.shape[1]}: every output "
+              f"bit-equal to the plain twin; {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
+              f"{nbytes / PEAK_BYTES * 1e3:.5f} ms (bytes: {nbytes / 1e6:.2f} MB) on {card}")
+        calls[f"cell_list {tag}"] = sort
     return rows, calls
 
 
@@ -1506,7 +1562,7 @@ def sharded_world_of_one(dev, card, m, model, state):
 
     from mtp_tpu_torch.kernels import all_kernels, main_path_kernels, reset_counts
     from mtp_tpu_torch.md.simulation import Simulation
-    from mtp_tpu_torch.ops.neighbors import K8, grid_shape
+    from mtp_tpu_torch.ops.neighbors import K8, K11, grid_shape
     from mtp_tpu_torch.parallel.comm import Comm, init_world
     from mtp_tpu_torch.parallel.domain import partition_slabs
     from mtp_tpu_torch.parallel.sharded_md import ShardedState
@@ -1518,7 +1574,7 @@ def sharded_world_of_one(dev, card, m, model, state):
                                                            "masses", "cell")]
     cell = np_state[4]
     w_cut = model.cutoff + 0.6
-    kernels, on_path = all_kernels(), main_path_kernels() + [K8]
+    kernels, on_path = all_kernels(), main_path_kernels() + [K8, K11]
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(dev)
         init_world(0, 1, f"{tmp}/store", backend="nccl")
@@ -1612,12 +1668,23 @@ def sharded_kernel_errors(sim, st, ctx, tag):
     masked as centers. A collective (the positions' halo exchange): every
     rank calls it. Held to the kernel rows' limits; also checks that ghost
     and padding rows carry no live pair and no site energy, and that K3
-    still fills the ghost rows. Returns ({name: max_abs_err}, row counts)."""
+    still fills the ghost rows. K11 against its plain twin on the rank's
+    extended set first: every output bit-equal, and its order the
+    rebuild's. Returns ({name: max_abs_err}, row counts)."""
+    import torch
+
+    from mtp_tpu_torch.ops.neighbors import cell_list, cell_list_plain
     from mtp_tpu_torch.ops.window_disp import window_geometry
 
     swl, k = ctx["swl"], ctx["consts"]
     model = sim.model
     (ext,) = sim._exchange_multi([(st.positions, 0.0)], ctx["sels"])
+    sort_args = (ext.contiguous(), st.cell.contiguous(), sim.w_cut, sim.grid, sim.bin_cap,
+                 ctx["real"].contiguous())
+    cl, twin = cell_list(*sort_args, sort=True), cell_list_plain(*sort_args, sort=True)
+    check(all(torch.equal(getattr(cl, f), getattr(twin, f)) for f in CELL_LIST_FIELDS + ("real",))
+          and torch.equal(cl.order, swl.order),
+          "K11 differs from its plain twin, or from the rebuild's order, on a rank's rows")
     pos_s = ext[swl.order].contiguous()
     own_s, real_s = ctx["own"][swl.order], ctx["real"][swl.order]
     ghost_s = real_s & ~own_s
@@ -1632,6 +1699,7 @@ def sharded_kernel_errors(sim, st, ctx, tag):
     for name, (kern, plain) in window_kernel_calls(model, pos_s, st.cell, k, args).items():
         errs[name], outs[name] = hold(name, kern, plain, tag)
     errs["candidates_mega"] = hold_k5(model, k, args, tag)
+    errs["cell_list"] = 0.0  # bit-equal, checked above
     check(float(mask[:, ~own_s].abs().max()) == 0.0, "a ghost or padding row has a live pair")
     check(float(outs["pair_forces_mega"][:, :, ~own_s].abs().max()) == 0.0,
           "K2 gave a masked row pair forces")
@@ -1772,7 +1840,7 @@ def sharded_two_ranks(dev, card, m, al_model, state):
           f"atoms arrived by migration {[r['arrived'] for r in ranks]}, own after "
           f"{[r['own'] for r in ranks]}; launches {counts}; plain calls {plain}")
     for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
-                 "candidates_mega", "neighbor_rows"):
+                 "candidates_mega", "neighbor_rows", "cell_list"):
         check(counts[name] > 0, f"{name} was not launched on 2 ranks")
         check(plain[name] == 0, f"{name}'s plain version ran on 2 ranks")
     errs = {name: max(r["kernel_errs"][name] for r in ranks) for name in ranks[0]["kernel_errs"]}
@@ -1871,7 +1939,7 @@ def narrow_world_of_one(dev, card, m, model, state):
 
     from mtp_tpu_torch.kernels import all_kernels, main_path_kernels, reset_counts
     from mtp_tpu_torch.md.simulation import Simulation
-    from mtp_tpu_torch.ops.neighbors import K8, grid_shape
+    from mtp_tpu_torch.ops.neighbors import K8, K11, grid_shape
     from mtp_tpu_torch.parallel.comm import Comm, init_world
     from mtp_tpu_torch.parallel.domain import partition_slabs
     from mtp_tpu_torch.parallel.sharded_md import (
@@ -1885,7 +1953,7 @@ def narrow_world_of_one(dev, card, m, model, state):
     w_cut = model.cutoff + 0.6
     grid = grid_shape(cell, w_cut)
     k, blocks = NARROW["n_steps"], NARROW["blocks"]
-    kernels, on_path = all_kernels(), main_path_kernels() + [K8]
+    kernels, on_path = all_kernels(), main_path_kernels() + [K8, K11]
     report = dict(atoms=n, grid=list(grid), steps=k * blocks, card=card)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(dev)
@@ -2100,7 +2168,7 @@ def narrow_two_ranks(dev, card, m, al_model, state):
           f"{ranks[0]['NE']}; atoms arrived {[r['arrived'] for r in ranks]}; launches {counts}; "
           f"plain calls {plain}")
     for name in ("window_disp", "pair_forces_mega", "window_giveback", "site_energies_mega",
-                 "candidates_mega", "neighbor_rows"):
+                 "candidates_mega", "neighbor_rows", "cell_list"):
         check(counts[name] > 0, f"{name} was not launched on the long box's 2 ranks")
         check(plain[name] == 0, f"{name}'s plain version ran on the long box's 2 ranks")
     errs = {k: max(r["kernel_errs"][k] for r in ranks) for k in ranks[0]["kernel_errs"]}
@@ -2256,6 +2324,7 @@ def main() -> int:
     from mtp_tpu_torch.ops.md_step import K9, K10
     from mtp_tpu_torch.ops.neighbors import (
         K8,
+        K11,
         build_neighbor_list,
         build_sorted_neighbor_list,
         grid_shape,
@@ -2340,8 +2409,8 @@ def main() -> int:
     state, _, fl, nl = sim.run_async(state, 210, dt=0.001, return_nl=True)
     torch_sync()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels + [K8, K9, K10]}
-    plain = {k.name: k.plain_calls for k in kernels + [K8, K9, K10]}
+    launches = {k.name: k.launches for k in kernels + [K8, K9, K10, K11]}
+    plain = {k.name: k.plain_calls for k in kernels + [K8, K9, K10, K11]}
     # run_async rebuilds once a block
     rebuilds = -(-60 // eq.steps_per_rebuild) - (-210 // sim.steps_per_rebuild)
     e1 = state.potential_energy + kinetic_energy(state)
@@ -2358,10 +2427,11 @@ def main() -> int:
     for k in kernels:
         check(k.launches > 0, f"{k.name} was not launched on the main path")
         check(k.plain_calls == 0, f"{k.name}'s plain version ran on the main path")
-    print(f"[4 main path] {K8.name}: {launches[K8.name]} launches for the run's {rebuilds} "
-          f"rebuilds, its plain twin {plain[K8.name]} calls")
-    check(launches[K8.name] == rebuilds, f"{K8.name} did not launch once per main-path rebuild")
-    check(plain[K8.name] == 0, f"{K8.name}'s plain twin ran on the main path")
+    for k in (K8, K11):
+        print(f"[4 main path] {k.name}: {launches[k.name]} launches for the run's {rebuilds} "
+              f"rebuilds, its plain twin {plain[k.name]} calls")
+        check(launches[k.name] == rebuilds, f"{k.name} did not launch once per main-path rebuild")
+        check(plain[k.name] == 0, f"{k.name}'s plain twin ran on the main path")
     print(f"[4 main path] {K9.name}: {launches[K9.name]} launches and {K10.name}: "
           f"{launches[K10.name]} for the run's 270 steps, their plain twins "
           f"{plain[K9.name]} and {plain[K10.name]} calls")
@@ -2382,7 +2452,7 @@ def main() -> int:
     steps = 60 + 210
     print(f"[5 kernels] {live:.0f} live pairs ({live / n:.2f} per atom); bound = max(bytes / "
           f"{PEAK_BYTES:.3g} B/s, fp32 operations / {PEAK_FLOPS:.3g} FLOP/s)")
-    print("[5b neighbor rows] K8 against its plain twin on the bin-sorted box, fp32, J=64, "
+    print("[5b neighbor list] K11 and K8 against their plain twins on the fcc box, fp32, J=64, "
           f"cutoff + skin {ROWS_CUT} A")
     rows_k8, rows_calls = neighbor_rows_phase(dev, card)
     stage_calls.update(rows_calls)
@@ -2445,15 +2515,15 @@ def main() -> int:
               f"{launches[k.name] / steps:.4f} launches per main-path step")
         rows.append(row)
     rows += rows7
-    for tag, row in rows_k8.items():
-        dev_ms = sum(ms for name, ms in stages[f"neighbor_rows {tag}"].items()
-                     if "neighbor_rows_kernel" in name)
+    for label, row in rows_k8.items():
+        dev_ms = sum(ms for name, ms in stages[label].items()
+                     if any(s in name for s in ROWS_STAGES[row["name"]]))
         share = device_share(row, dev_ms)
-        print(f"  neighbor_rows {tag}: {row['ms']:.4f} ms by CUDA events around the wrapper, "
+        print(f"  {label}: {row['ms']:.4f} ms by CUDA events around the wrapper, "
               f"{dev_ms:.4f} ms on the device (plain {row['plain_ms']:.4f} ms); bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {share} of the device time; "
-              f"{row['launches_per_build']} launch per rebuild")
-        row["main_path_launches"] = launches[K8.name]
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {share} of the device time; "
+              f"{row['launches_per_build']} call per rebuild")
+        row["main_path_launches"] = launches[row["name"]]
         row["main_path_rebuilds"] = rebuilds
         rows.append(row)
     for label, row in rows_md.items():

@@ -1,13 +1,14 @@
 """Neighbor lists on the tensors' device.
 
-Port of ``mtp_tpu/ops/neighbors.py``: a periodic cell (bin) list built from
-sort and gather primitives in plain PyTorch, and its row phase (each centre's
-stencil candidates, filtered and sorted) in one CUDA kernel on the card, K8
-(``csrc/neighbor_rows.cu``), with its plain twin :func:`neighbor_rows_plain`
-for CPU tensors. Every constant is made on the device or folded
-in as a Python number (a host-to-device copy from pageable memory would
-synchronise the stream), so a rebuild queues behind the step loop on the
-card without the host waiting for it.
+Port of ``mtp_tpu/ops/neighbors.py``: a periodic cell (bin) list. On the
+card its bin sort and cell table are one call of K11 (``csrc/cell_list.cu``)
+and its row phase (each centre's stencil candidates, filtered and sorted)
+one launch of K8 (``csrc/neighbor_rows.cu``); CPU tensors take their plain
+twins :func:`cell_list_plain` and :func:`neighbor_rows_plain`. Every
+constant is made on the device or folded in as a Python number (a
+host-to-device copy from pageable memory would synchronise the stream), so
+a rebuild queues behind the step loop on the card without the host waiting
+for it.
 
 Representation: padded index array ``idx (N, max_neighbors) int32`` whose
 padding entries equal the row's own atom index (self-pairs are masked by the
@@ -55,6 +56,13 @@ K8 = Kernel(
     replaces="none: the row phase of mtp_tpu/ops/neighbors.py is XLA code",
     argtypes=(_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double,
               _I, _I, _P),
+)
+K11 = Kernel(
+    name="cell_list",
+    symbol="mtp_cell_list",
+    source="mtp_tpu_torch/csrc/cell_list.cu",
+    replaces="none: the bin sort of mtp_tpu/ops/neighbors.py is XLA code",
+    argtypes=(_P,) * 14 + (_I,) * 5 + (ctypes.c_double, _I, _I, _P),
 )
 
 
@@ -181,51 +189,153 @@ def build_neighbor_list(
     (``ops/neighbors.py:163-168``) and drops such pairs without a flag.
     """
     with span("nl.build"):
-        return _build_neighbor_list(
-            positions, cell, cutoff, max_neighbors=max_neighbors, grid=grid,
-            bin_capacity=bin_capacity, real=real, centers=centers,
-            include_self_image=include_self_image,
-        )
+        with span("nl.sort"):
+            cl = cell_list(positions.contiguous(), cell.contiguous(), cutoff, grid, bin_capacity,
+                           None if real is None else real.contiguous(), sort=False)
+        idx, overflow = _rows(cl, cell, cutoff, max_neighbors, grid, centers, include_self_image)
+        del cl  # the cell table ends with the rows: the mirror's sort may reuse its memory
+        mirror = None
+        if centers is None:
+            with span("nl.mirror"):
+                mirror = mirror_permutation(idx)
+    return NeighborList(
+        idx=idx,
+        overflow=overflow,
+        reference_positions=positions,
+        reference_cell=cell,
+        mirror=mirror,
+    )
 
 
-def _cell_table(positions, cell, cutoff, grid, bin_capacity, real):
-    """The bin sort and cell table of a build: (inv_cell, bin3 (N, 3) int64,
-    table (bins, cap) int64 with -1 holes, each bin filled from slot 0 in
-    ascending atom order, counts (bins,) int64 atoms per bin (over cap on
-    overflow), and the bin-capacity and geometry flag)."""
+@dataclasses.dataclass
+class CellList:
+    """The bin sort and cell table of a build (:func:`cell_list`). Sorted
+    (the MD path): rows in bin order, `order` sorted row -> atom and
+    `inv_order` its inverse; unsorted: rows in the atoms' own order, `order`
+    and `inv_order` None."""
+
+    inv_cell: torch.Tensor  # (3, 3) contiguous, inverse_cell's values
+    positions: torch.Tensor  # (N, 3): in bin order when sorted, else as given
+    real: torch.Tensor | None  # (N,) bool, ordered as `positions`
+    bin3: torch.Tensor  # (N, 3) int64 bin coordinates, ordered as `positions`
+    table: torch.Tensor  # (bins, cap) int64 rows of `positions`, -1 holes
+    counts: torch.Tensor  # (bins,) int64 atoms a bin (over cap on overflow)
+    overflow: torch.Tensor  # () bool: a real bin over cap, or the geometry
+    order: torch.Tensor | None  # (N,) int64 sorted row -> atom
+    inv_order: torch.Tensor | None  # (N,) int64 atom -> sorted row
+
+
+def _bin_capacity(n, ncells, bin_capacity):
+    return bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
+
+
+def cell_list_plain(positions, cell, cutoff, grid, bin_capacity=None, real=None, *, sort):
+    """Plain PyTorch twin of K11 (:func:`cell_list`), in the kernel's
+    operations and order; one stable sort. Each bin's table row holds its
+    first `cap` atoms in ascending order (the sorted rows when `sort`, else
+    the atoms' own indices)."""
+    K11.plain_calls += 1
     n = positions.shape[0]
     dev = positions.device
-    gx, gy, gz = grid
-    ncells = gx * gy * gz
-    inv_cell = inverse_cell(cell)
+    ncells = grid[0] * grid[1] * grid[2]
+    inv_cell = inverse_cell(cell).contiguous()
     bin3, bin_id = _bins(positions, inv_cell, grid)
     if real is not None:
-        bin_id = torch.where(real, bin_id, ncells)  # the trash bin
+        bin_id = torch.where(real, bin_id, ncells)  # the trash bin: sorts last
 
     # the grid is static but the cell is a run-time value: flag any binned
     # dimension whose bin width has shrunk below the cutoff, and any
     # dimension of 1 or 2 bins narrower than 2 x cutoff (the minimum-image
     # bound); relative epsilon: commensurate boxes have width/g == cutoff
-    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)  # plane spacings
+    sq = inv_cell * inv_cell
+    widths = 1.0 / torch.sqrt(sq[0] + sq[1] + sq[2])  # plane spacings
     geom_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for a, g in enumerate(grid):
         geom_overflow = geom_overflow | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
 
     order = torch.argsort(bin_id, stable=True)
     sorted_bin = bin_id[order]
-    cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
+    cap = _bin_capacity(n, ncells, bin_capacity)
     nbins = ncells + (real is not None)
     counts = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
         0, bin_id, torch.ones_like(bin_id)
     )
     cell_overflow = torch.max(counts[:ncells]) > cap
     start = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n, device=dev) - start[sorted_bin]
+    rows = torch.arange(n, device=dev)
+    rank = rows - start[sorted_bin]
+    fill = rank < cap  # a bin past cap keeps its first cap atoms (the flag is set)
     table = torch.full((nbins, cap), -1, dtype=torch.int64, device=dev)
-    # on bin overflow, clipped writes collide (the flag is already set; the
-    # trash bin's collisions are harmless, no stencil reads it)
-    table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
-    return inv_cell, bin3, table, counts, cell_overflow | geom_overflow
+    table[sorted_bin[fill], rank[fill]] = (rows if sort else order)[fill]
+    overflow = cell_overflow | geom_overflow
+    if not sort:
+        return CellList(inv_cell, positions, real, bin3, table, counts, overflow, None, None)
+    return CellList(inv_cell, positions[order], None if real is None else real[order],
+                    bin3[order], table, counts, overflow, order, torch.argsort(order))
+
+
+def cell_list(positions, cell, cutoff, grid, bin_capacity=None, real=None, *, sort):
+    """The bin sort and cell table of a build: each atom's bin (cell
+    coordinates wrapped to [0, 1), times the grid, truncated), the stable
+    order of the atoms by bin with non-real rows last (a trash bin the
+    stencil never reads), the bins' counts, the (bins, cap) table of each
+    bin's first `cap` rows ascending with -1 holes, and the flag: a real
+    bin over `cap` (default 2.2x the mean + 12, as in the JAX package), or
+    a binned axis narrower than the cutoff, or one of 1 or 2 bins narrower
+    than 2 x cutoff. `sort` puts the rows in bin order (the MD path's
+    sorted build); else they stay in the atoms' order. Returns a
+    :class:`CellList`.
+
+    A CPU tensor goes to :func:`cell_list_plain`, a CUDA tensor to K11
+    (``csrc/cell_list.cu``: a memset and four kernels, one call), or the
+    wrapper raises."""
+    if positions.device.type == "cpu":
+        return cell_list_plain(positions, cell, cutoff, grid, bin_capacity, real, sort=sort)
+    n = positions.shape[0]
+    dtype, dev = positions.dtype, positions.device
+    if dtype not in (torch.float32, torch.float64) or cell.dtype != dtype:
+        raise TypeError("cell_list kernel takes float32 or float64 positions and a cell of "
+                        "their type")
+    if real is not None and real.dtype != torch.bool:
+        raise TypeError("cell_list kernel takes a bool real")
+    tensors = (positions, cell) + (() if real is None else (real,))
+    if (positions.shape != (n, 3) or cell.shape != (3, 3)
+            or (real is not None and real.shape != (n,))
+            or any(t.device != dev or not t.is_contiguous() for t in tensors)
+            or len(grid) != 3 or min(grid) < 1):
+        raise ValueError("cell_list kernel takes contiguous (N, 3) positions, a (3, 3) cell and "
+                         "an (N,) real on one device, and a grid of three positive sizes")
+    gx, gy, gz = map(int, grid)
+    ncells = gx * gy * gz
+    nbins = ncells + (real is not None)
+    cap = _bin_capacity(n, ncells, bin_capacity)
+    i64 = dict(dtype=torch.int64, device=dev)
+    inv_cell = torch.empty((3, 3), dtype=dtype, device=dev)
+    bin3 = torch.empty((n, 3), **i64)
+    table = torch.empty((nbins, cap), **i64)
+    counts = torch.empty(nbins, **i64)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    scratch = torch.empty(3 * n, dtype=torch.int32, device=dev)
+    start = torch.empty(nbins, **i64)
+    order = inv_order = real_s = None
+    pos_s = positions
+    if sort:
+        order, inv_order = torch.empty(n, **i64), torch.empty(n, **i64)
+        pos_s = torch.empty_like(positions)
+        real_s = None if real is None else torch.empty_like(real)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    K11.launch(
+        positions.data_ptr(), cell.data_ptr(), ptr(real), inv_cell.data_ptr(), ptr(order),
+        ptr(inv_order), pos_s.data_ptr() if sort else None, ptr(real_s), bin3.data_ptr(),
+        counts.data_ptr(), table.data_ptr(), overflow.data_ptr(), scratch.data_ptr(),
+        start.data_ptr(), n, gx, gy, gz, cap, cutoff * (1.0 - 1e-6), int(sort),
+        int(dtype == torch.float64), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return CellList(inv_cell, pos_s, real_s if sort else real, bin3, table, counts, overflow,
+                    order, inv_order)
 
 
 def neighbor_rows_plain(positions, bin3, table, counts, cell, inv_cell, grid, cutoff,
@@ -290,7 +400,7 @@ def neighbor_rows(positions, bin3, table, counts, cell, inv_cell, grid, cutoff, 
                   centers, real=None, include_self_image=False):
     """The row phase of a build: (idx (centers, J) int32, each row's kept
     neighbours ascending and padded with its own index; the largest kept
-    count of a row, a device scalar). Inputs as :func:`_cell_table` makes
+    count of a row, a device scalar). Inputs as :func:`cell_list` makes
     them. A CPU tensor goes to :func:`neighbor_rows_plain`, a CUDA tensor to
     K8 (``csrc/neighbor_rows.cu``), one launch, or the wrapper raises."""
     if positions.device.type == "cpu":
@@ -327,33 +437,15 @@ def neighbor_rows(positions, bin3, table, counts, cell, inv_cell, grid, cutoff, 
     return idx, max_count
 
 
-def _build_neighbor_list(positions, cell, cutoff, *, max_neighbors, grid, bin_capacity=None,
-                         real=None, centers=None, include_self_image=False):
-    """:func:`build_neighbor_list` inside an open ``nl.build`` span: the bin
-    sort and cell table (``nl.sort``), the row phase (``nl.rows``, K8 on the
-    card), the mirror (``nl.mirror``)."""
-    nc = positions.shape[0] if centers is None else int(centers)
-    with span("nl.sort"):
-        inv_cell, bin3, table, counts, table_overflow = _cell_table(
-            positions, cell, cutoff, grid, bin_capacity, real)
+def _rows(cl, cell, cutoff, max_neighbors, grid, centers=None, include_self_image=False):
+    """The row phase (``nl.rows``, K8 on the card) over a :class:`CellList`'s
+    rows. Returns (idx, the build's overflow flag)."""
+    nc = cl.positions.shape[0] if centers is None else int(centers)
     with span("nl.rows"):
-        # inverse_cell's result is laid out transposed: the kernel reads rows
         idx, max_count = neighbor_rows(
-            positions.contiguous(), bin3, table, counts, cell.contiguous(),
-            inv_cell.contiguous(), grid, cutoff, max_neighbors, nc,
-            None if real is None else real.contiguous(), include_self_image)
-        nbr_overflow = max_count > max_neighbors
-    mirror = None
-    if centers is None:
-        with span("nl.mirror"):
-            mirror = mirror_permutation(idx)
-    return NeighborList(
-        idx=idx,
-        overflow=table_overflow | nbr_overflow,
-        reference_positions=positions,
-        reference_cell=cell,
-        mirror=mirror,
-    )
+            cl.positions, cl.bin3, cl.table, cl.counts, cell.contiguous(), cl.inv_cell, grid,
+            cutoff, max_neighbors, nc, cl.real, include_self_image)
+        return idx, cl.overflow | (max_count > max_neighbors)
 
 
 def build_neighbor_list_bruteforce(positions, cell, cutoff: float, *, max_neighbors: int):
@@ -426,24 +518,21 @@ def build_sorted_neighbor_list(
     `real`/`bin_capacity`: as in :func:`build_neighbor_list`. Non-real rows
     (the halo and slab padding of the sharded path) sort last, into the
     trash bin, and are excluded as centers and as neighbors."""
-    gx, gy, gz = grid
     with span("nl.build"):
         with span("nl.sort"):
-            _, bin_id = _bins(positions, inverse_cell(cell), grid)
-            if real is not None:
-                bin_id = torch.where(real, bin_id, gx * gy * gz)  # trash: sorts last
-            order = torch.argsort(bin_id, stable=True)
-            inv_order = torch.argsort(order)
-        nl = _build_neighbor_list(
-            positions[order], cell, cutoff, max_neighbors=max_neighbors, grid=grid,
-            bin_capacity=bin_capacity, real=None if real is None else real[order],
-        )
+            cl = cell_list(positions.contiguous(), cell.contiguous(), cutoff, grid, bin_capacity,
+                           None if real is None else real.contiguous(), sort=True)
+        idx, overflow = _rows(cl, cell, cutoff, max_neighbors, grid)
+        order, inv_order = cl.order, cl.inv_order
+        del cl  # the cell table ends with the rows: the mirror's sort may reuse its memory
+        with span("nl.mirror"):
+            mirror = mirror_permutation(idx)
     return SortedNeighborList(
         order=order,
         inv_order=inv_order,
-        idx=nl.idx,
-        mirror=nl.mirror,
-        overflow=nl.overflow,
+        idx=idx,
+        mirror=mirror,
+        overflow=overflow,
         reference_positions=positions,
         reference_cell=cell,
     )

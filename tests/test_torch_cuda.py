@@ -26,7 +26,9 @@ neighbor_rows bit-equal to its plain twin in rows, mirror and flag whenever
 no capacity overflows (the same IEEE operations in the same order), the flag
 alone under overflow. K9 md_step bit-equal to its plain twin in positions,
 velocities and step; K10 verlet_top2 bit-equal in m1 and m2 (NaN where the
-twin's is) and equal in the flag, on every case.
+twin's is) and equal in the flag, on every case. K11 cell_list bit-equal to
+its plain twin in every output on every case, a bin past its capacity
+included (both keep a bin's first `cap` rows).
 """
 
 import json
@@ -530,8 +532,8 @@ def test_neighbor_rows_is_one_launch(dev):
     fill; no sort kernel."""
     p, c, cell = _rows_box(dev, (10, 10, 10), 3.8)
     grid = grid_shape(cell, 5.6)
-    inv, bin3, table, counts, _ = nbm._cell_table(p, c, 5.6, grid, None, None)
-    args = (p, bin3, table, counts, c, inv.contiguous(), grid, 5.6, 64, len(p))
+    cl = nbm.cell_list(p, c, 5.6, grid, sort=False)
+    args = (p, cl.bin3, cl.table, cl.counts, c, cl.inv_cell, grid, 5.6, 64, len(p))
     nbm.neighbor_rows(*args)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -546,13 +548,14 @@ def test_neighbor_rows_is_one_launch(dev):
 def test_neighbor_rows_refuses_bad_operands(dev):
     p, c, cell = _rows_box(dev, (6, 6, 6))
     grid = grid_shape(cell, 5.6)
-    inv, bin3, table, counts, _ = nbm._cell_table(p, c, 5.6, grid, None, None)
-    args = (p, bin3, table, counts, c, inv.contiguous(), grid, 5.6, 64, len(p))
+    cl = nbm.cell_list(p, c, 5.6, grid, sort=False)
+    bin3, table, counts, inv = cl.bin3, cl.table, cl.counts, cl.inv_cell
+    args = (p, bin3, table, counts, c, inv, grid, 5.6, 64, len(p))
     for i, bad in ((0, p.half()), (1, bin3.int()), (2, table.int()), (3, counts.int()),
                    (4, c.double())):
         with pytest.raises(TypeError):
             nbm.neighbor_rows(*args[:i], bad, *args[i + 1:])
-    for i, bad in ((5, inv), (0, p.T.contiguous().T), (1, bin3[:-1]), (3, counts[:-1]),
+    for i, bad in ((5, inv.T), (0, p.T.contiguous().T), (1, bin3[:-1]), (3, counts[:-1]),
                    (9, len(p) + 1)):
         with pytest.raises(ValueError):
             nbm.neighbor_rows(*args[:i], bad, *args[i + 1:])
@@ -561,8 +564,8 @@ def test_neighbor_rows_refuses_bad_operands(dev):
 
 
 def test_simulation_run_builds_rows_with_the_kernel(dev):
-    """`Simulation.run` on the card: K8 launches once per rebuild and its
-    plain twin never runs."""
+    """`Simulation.run` on the card: K8 and K11 launch once per rebuild and
+    their plain twins never run."""
     model = MTPModel.from_data(make_mtp(8, seed=0), device=dev, dtype=torch.float32)
     pos, types, cell = make_lattice("fcc", 4.0, (6, 6, 6))
     st = init_state(pos, types, np.full(len(pos), 58.693), cell, device=dev)
@@ -573,10 +576,136 @@ def test_simulation_run_builds_rows_with_the_kernel(dev):
     inner = sim.rebuild
     sim.rebuild = lambda *a, **kw: rebuilds.append(1) or inner(*a, **kw)
     launches, plain = nbm.K8.launches, nbm.K8.plain_calls
+    sort_launches, sort_plain = nbm.K11.launches, nbm.K11.plain_calls
     sim.run(st, 30, dt=0.001)
     torch.cuda.synchronize()
     assert len(rebuilds) >= 3
     assert nbm.K8.launches - launches == len(rebuilds) and nbm.K8.plain_calls == plain
+    assert nbm.K11.launches - sort_launches == len(rebuilds) and nbm.K11.plain_calls == sort_plain
+
+
+# name: (reps, a, tilt, dtype, grid (None: grid_shape), bin_capacity, real every k-th row
+# dropped (0: no mask), atoms crowded into one bin)
+_CELL_CASES = {
+    "fcc32k": ((20, 20, 20), 3.8, 0.0, torch.float32, None, None, 0, 0),
+    "alloy131k": ((32, 32, 32), 3.8, 0.0, torch.float32, None, None, 0, 0),
+    "tilted": ((6, 6, 6), 4.0, 0.2, torch.float32, None, None, 0, 0),
+    "1-bin axis": ((6, 6, 6), 4.0, 0.0, torch.float32, (1, 4, 4), None, 0, 0),
+    "2-bin axes": ((6, 3, 3), 4.0, 0.0, torch.float32, None, None, 0, 0),
+    "float64": ((6, 6, 6), 4.0, 0.2, torch.float64, None, None, 0, 0),
+    "random gas": (None, None, None, torch.float32, None, None, 0, 0),
+    "trash bin of thousands": ((12, 12, 12), 4.0, 0.0, torch.float32, None, None, 2, 0),
+    "one overflowed bin": ((6, 6, 6), 4.0, 0.0, torch.float32, None, None, 0, 60),
+    "every bin over capacity": ((6, 6, 6), 4.0, 0.0, torch.float32, None, 4, 0, 0),
+}
+
+
+def _cell_case(dev, case):
+    reps, a, tilt, dtype, grid, cap, every, crowd = _CELL_CASES[case]
+    if reps is None:  # 900 atoms anywhere in a box three times the cell's: unwrapped
+        cell = np.diag([23.0, 25.0, 27.0])
+        pos = np.random.default_rng(12).uniform(-1.0, 2.0, (900, 3)) * np.diag(cell)
+        p = torch.as_tensor(pos, dtype=dtype, device=dev)
+        c = torch.as_tensor(cell, dtype=dtype, device=dev)
+    else:
+        p, c, cell = _rows_box(dev, reps, a, tilt, dtype)
+        if crowd:
+            # about the centre of the first bin (6 A wide), past its capacity of 42
+            g = torch.Generator(device=dev).manual_seed(1)
+            p[:crowd] = 3.0 + 0.05 * torch.randn((crowd, 3), dtype=dtype, device=dev, generator=g)
+    real = torch.arange(len(p), device=dev) % every != 0 if every else None
+    return p, c, grid or grid_shape(cell, 5.6), cap, real
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("case", list(_CELL_CASES))
+def test_cell_list_kernel_matches_plain(dev, case, sort, monkeypatch):
+    """K11 against its plain twin on the same inputs, on the card: every
+    output bit-equal (the table of a bin past its capacity too), order a
+    permutation; one launch, no twin call. Sorted and within capacity, a
+    whole build with K11 against one with its twin: rows, mirror and order
+    bit-equal."""
+    p, c, grid, cap, real = _cell_case(dev, case)
+    n = len(p)
+    launches, plain = nbm.K11.launches, nbm.K11.plain_calls
+    got = nbm.cell_list(p, c, 5.6, grid, cap, real, sort=sort)
+    torch.cuda.synchronize()
+    assert (nbm.K11.launches, nbm.K11.plain_calls) == (launches + 1, plain)
+    want = nbm.cell_list_plain(p, c, 5.6, grid, cap, real, sort=sort)
+    overflows = case in ("one overflowed bin", "every bin over capacity")
+    assert bool(got.overflow) == bool(want.overflow) == overflows
+    for name in ("inv_cell", "positions", "bin3", "table", "counts"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.inv_cell.is_contiguous() and got.table.shape == want.table.shape
+    assert (got.real is None) == (real is None)
+    if real is not None:
+        assert torch.equal(got.real, want.real)
+        assert int(got.counts[-1]) == int((~real).sum()) > 1000
+    if not sort:
+        assert got.order is None and got.inv_order is None and got.positions is p
+        return
+    assert torch.equal(got.order, want.order) and torch.equal(got.inv_order, want.inv_order)
+    assert torch.equal(torch.sort(got.order).values, torch.arange(n, device=dev))
+    if overflows:
+        return
+    build = lambda: build_sorted_neighbor_list(p, c, 5.6, max_neighbors=64, grid=grid,  # noqa: E731
+                                               real=real, bin_capacity=cap)
+    kernel_build = build()
+    monkeypatch.setattr(nbm, "cell_list", nbm.cell_list_plain)
+    twin_build = build()
+    assert not bool(kernel_build.overflow) and not bool(twin_build.overflow)
+    for name in ("idx", "mirror", "order", "inv_order"):
+        assert torch.equal(getattr(kernel_build, name), getattr(twin_build, name)), name
+
+
+def test_sort_span_launches_at_most_six(dev, tmp_path):
+    """A sorted build's ``nl.sort`` span on the card: K11's four kernels and
+    one memset, nothing else (no sort kernel)."""
+    p, c, cell = _rows_box(dev, (20, 20, 20), 3.8)
+    grid = grid_shape(cell, 5.6)
+
+    def build():
+        return build_sorted_neighbor_list(p, c, 5.6, max_neighbors=64, grid=grid)
+
+    build()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        build()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == "nl.sort"]
+    assert len(spans) == 1
+    lo, hi = spans[0]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {}) and lo <= e["ts"] < hi}
+    ops = [e for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+           and e.get("args", {}).get("correlation") in launched]
+    names = [e["name"] for e in ops]
+    assert len(ops) <= 6, names
+    assert sum(e["cat"] == "kernel" and "cell_list_" in e["name"] for e in ops) == 4, names
+    assert sum(e["cat"] == "gpu_memset" for e in ops) == 1, names
+    assert not any("sort" in n.lower() for n in names), names
+
+
+def test_cell_list_refuses_bad_operands(dev):
+    p, c, cell = _rows_box(dev, (6, 6, 6))
+    grid = grid_shape(cell, 5.6)
+    real = torch.ones(len(p), dtype=torch.bool, device=dev)
+    args = (p, c, 5.6, grid, None, real)
+    launches = nbm.K11.launches
+    for i, bad in ((0, p.half()), (1, c.double()), (5, real.int())):
+        with pytest.raises(TypeError):
+            nbm.cell_list(*args[:i], bad, *args[i + 1:], sort=True)
+    for i, bad in ((0, p.T.contiguous().T), (0, p[:, :2].contiguous()), (1, c.T),
+                   (1, c.cpu()), (5, real[:-1]), (3, (4, 4)), (3, (0, 4, 4))):
+        with pytest.raises(ValueError):
+            nbm.cell_list(*args[:i], bad, *args[i + 1:], sort=True)
+    assert nbm.K11.launches == launches
 
 
 def test_main_path_launches_every_kernel(dev):

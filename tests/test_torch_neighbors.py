@@ -20,6 +20,7 @@ from mtp_tpu_torch.ops.neighbors import (
     mirror_permutation,
     needs_rebuild,
 )
+from mtp_tpu_torch.ops.window_disp import inverse_cell
 
 from _torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -291,14 +292,18 @@ def test_narrow_axis_flags_the_minimum_image():
 
 def test_cpu_tensors_take_the_plain_row_phase():
     """On the CPU every build runs the row phase's plain twin once (its
-    counter moves), and K8 never launches; the sorted build likewise."""
+    counter moves), and K8 never launches; the sorted build likewise. The
+    bin sort and cell table too: K11's plain twin once a build, the sorted
+    build's included."""
     pos, cell = _box(reps=(4, 4, 4), seed=10)
     p, c = torch.as_tensor(pos), torch.as_tensor(cell)
     grid = grid_shape(cell, CUT)
     launches, plain = nbm.K8.launches, nbm.K8.plain_calls
+    sort_launches, sort_plain = nbm.K11.launches, nbm.K11.plain_calls
     build_neighbor_list(p, c, CUT, max_neighbors=64, grid=grid)
     build_sorted_neighbor_list(p, c, CUT, max_neighbors=64, grid=grid)
     assert nbm.K8.plain_calls == plain + 2 and nbm.K8.launches == launches == 0
+    assert nbm.K11.plain_calls == sort_plain + 2 and nbm.K11.launches == sort_launches == 0
 
 
 @pytest.mark.parametrize("case", ["fcc", "triclinic", "real and centers", "self image, J 104",
@@ -322,9 +327,9 @@ def test_plain_rows_ignore_the_row_block(case, monkeypatch):
     p, c = torch.as_tensor(pos), torch.as_tensor(cell)
     grid = grid_shape(cell, CUT)
     real = kw.get("real")
-    inv, bin3, table, counts, _ = nbm._cell_table(p, c, CUT, grid, None, real)
-    args = (p, bin3, table, counts, c, inv, grid, CUT, j, kw.get("centers", len(pos)), real,
-            kw.get("include_self_image", False))
+    cl = nbm.cell_list(p, c, CUT, grid, None, real, sort=False)
+    args = (p, cl.bin3, cl.table, cl.counts, c, cl.inv_cell, grid, CUT, j,
+            kw.get("centers", len(pos)), real, kw.get("include_self_image", False))
     idx, count = nbm.neighbor_rows_plain(*args)
     assert nbm._ROW_BLOCK == 8192
     monkeypatch.setattr(nbm, "_ROW_BLOCK", 7)
@@ -332,3 +337,122 @@ def test_plain_rows_ignore_the_row_block(case, monkeypatch):
     assert torch.equal(idx, idx7) and int(count) == int(count7)
     assert (int(count) > j) == (case == "overflow")
     assert idx.shape == (args[9], j) and bool((idx[:, 1:] >= idx[:, :-1]).all())
+
+
+def _frozen_bins(positions, inv_cell, grid):
+    """The bins of a build before K11 (``ops/neighbors.py _bins``)."""
+    gx, gy, gz = grid
+    frac = [positions[:, 0] * inv_cell[0, a] + positions[:, 1] * inv_cell[1, a]
+            + positions[:, 2] * inv_cell[2, a] for a in range(3)]
+    frac = [f - torch.floor(f) for f in frac]
+    bin3 = torch.stack(
+        [torch.clamp((frac[a] * g).to(torch.int64), 0, g - 1) for a, g in enumerate(grid)],
+        dim=1,
+    )
+    return bin3, (bin3[:, 0] * gy + bin3[:, 1]) * gz + bin3[:, 2]
+
+
+def _frozen_cell_table(positions, cell, cutoff, grid, bin_capacity, real):
+    """The cell table of a build before K11 (``ops/neighbors.py
+    _cell_table``): (inv_cell, bin3, table, counts, flag)."""
+    n = positions.shape[0]
+    ncells = grid[0] * grid[1] * grid[2]
+    inv_cell = inverse_cell(cell)
+    bin3, bin_id = _frozen_bins(positions, inv_cell, grid)
+    if real is not None:
+        bin_id = torch.where(real, bin_id, ncells)
+    widths = 1.0 / torch.linalg.vector_norm(inv_cell, dim=0)
+    geom = torch.zeros((), dtype=torch.bool)
+    for a, g in enumerate(grid):
+        geom = geom | (widths[a] / max(g, 2) < cutoff * (1.0 - 1e-6))
+    order = torch.argsort(bin_id, stable=True)
+    sorted_bin = bin_id[order]
+    cap = bin_capacity or max(1, int(np.ceil(2.2 * n / ncells)) + 12)
+    nbins = ncells + (real is not None)
+    counts = torch.zeros(nbins, dtype=torch.int64).index_add_(0, bin_id, torch.ones_like(bin_id))
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n) - start[sorted_bin]
+    table = torch.full((nbins, cap), -1, dtype=torch.int64)
+    table[sorted_bin, torch.clamp(rank, max=cap - 1)] = order
+    return inv_cell, bin3, table, counts, (torch.max(counts[:ncells]) > cap) | geom
+
+
+def _frozen_two_sorts(positions, cell, cutoff, grid, bin_capacity, real):
+    """The sorted build's bin sort before K11: the atoms' bins and stable
+    argsort, then the cell table of the sorted atoms, which bins and sorts
+    them a second time. Returns (order, inv_order, sorted positions, sorted
+    real, inv_cell, bin3, table, counts, flag)."""
+    _, bin_id = _frozen_bins(positions, inverse_cell(cell), grid)
+    if real is not None:
+        bin_id = torch.where(real, bin_id, grid[0] * grid[1] * grid[2])
+    order = torch.argsort(bin_id, stable=True)
+    ps, rs = positions[order], None if real is None else real[order]
+    return (order, torch.argsort(order), ps, rs,
+            *_frozen_cell_table(ps, cell, cutoff, grid, bin_capacity, rs))
+
+
+def _cell_list_case(name):
+    """(positions, cell, grid, bin_capacity, real) of a cell-list case,
+    float32 but for "float64"."""
+    dtype = torch.float64 if name == "float64" else torch.float32
+    grid, cap, real = None, None, None
+    if name == "random gas":  # unwrapped: coordinates up to a box beyond the cell
+        cell = np.diag([23.0, 25.0, 27.0])
+        pos = np.random.default_rng(12).uniform(-0.5, 1.5, (900, 3)) * np.diag(cell)
+    elif name == "trash bin of thousands":
+        pos, cell = _box(reps=(12, 12, 12), seed=13)
+        real = torch.as_tensor(np.arange(len(pos)) % 2 == 0)
+    else:
+        reps = (6, 3, 3) if name == "2-bin axes" else (6, 6, 6)
+        pos, cell = _box(reps=reps, seed=14, tilt=0.2 if name in ("tilted", "float64") else 0.0)
+        if name == "1-bin axis":
+            grid = (1, 4, 4)
+        elif name == "one overflowed bin":
+            # 60 atoms about the centre of the first bin (6 A wide), past its 42
+            pos[:60] = 3.0 + np.random.default_rng(15).normal(0, 0.05, (60, 3))
+    p, c = torch.as_tensor(pos, dtype=dtype), torch.as_tensor(cell, dtype=dtype)
+    return p, c, grid or grid_shape(cell, CUT), cap, real
+
+
+_CELL_LIST_CASES = ["fcc", "random gas", "tilted", "1-bin axis", "2-bin axes", "float64",
+                    "trash bin of thousands", "one overflowed bin"]
+
+
+def _equal_tables(got, want, counts):
+    """Tables equal in every bin within its capacity; a bin past it in all
+    but its last slot (where the old clipped writes collided)."""
+    cap = got.shape[1]
+    over = counts > cap
+    return (torch.equal(got[~over], want[~over])
+            and torch.equal(got[over, :cap - 1], want[over, :cap - 1]))
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("case", _CELL_LIST_CASES)
+def test_cell_list_plain_sorts_once_as_the_two_sorts_did(case, sort):
+    """The plain twin of K11, one stable sort, gives what the build gave
+    before it, output by output: sorted, what the outer bin sort and the
+    cell table of the sorted atoms gave; unsorted, the cell table of the
+    atoms in their own order. Order and inverse order are permutations,
+    overflow or not."""
+    p, c, grid, cap, real = _cell_list_case(case)
+    n = len(p)
+    got = nbm.cell_list_plain(p, c, CUT, grid, cap, real, sort=sort)
+    if sort:
+        order, inv_order, ps, rs, inv, bin3, table, counts, flag = _frozen_two_sorts(
+            p, c, CUT, grid, cap, real)
+        assert torch.equal(got.order, order) and torch.equal(got.inv_order, inv_order)
+        assert torch.equal(got.positions, ps)
+        assert (got.real is None) == (rs is None) and (rs is None or torch.equal(got.real, rs))
+        assert torch.equal(torch.sort(got.order).values, torch.arange(n))
+        assert torch.equal(got.inv_order[got.order], torch.arange(n))
+    else:
+        inv, bin3, table, counts, flag = _frozen_cell_table(p, c, CUT, grid, cap, real)
+        assert got.order is None and got.inv_order is None and got.positions is p
+    assert torch.equal(got.inv_cell, inv) and got.inv_cell.is_contiguous()
+    assert torch.equal(got.bin3, bin3) and torch.equal(got.counts, counts)
+    assert _equal_tables(got.table, table, counts)
+    assert bool(got.overflow) == bool(flag) == (case == "one overflowed bin")
+    assert int(counts.sum()) == n and got.table.shape == (len(counts), got.table.shape[1])
+    if real is not None:  # the trash bin: every non-real row, past its capacity
+        assert int(counts[-1]) == int((~real).sum()) > 1000 > got.table.shape[1]
